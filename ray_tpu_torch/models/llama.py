@@ -1,0 +1,327 @@
+"""Llama-3-family decoder, serving surface (port of ray_tpu/models/llama.py).
+
+Parameters keep the reference's tree: the same keys and the stacked
+[n_layers, ...] layer axis, so one converter (models/convert.py) moves a
+JAX tree over unchanged.  Layers run as a Python loop over that axis.
+The large projections stay `torch.matmul`, as the reference leaves them
+to XLA; attention goes through ops.attention (flash kernel on CUDA) in
+prefill and ops.paged_attention (paged kernel on CUDA) in decode.
+
+LoRA arguments are accepted as None only: the batched-adapter path is
+not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.norms import rmsnorm
+from ray_tpu_torch.ops.paged_attention import (gather_pages,
+                                               paged_decode_attention)
+from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
+              "w_up", "w_down")
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    ffn_dim: int = 14336
+    max_seq: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    def num_params(self) -> int:
+        d, f, v = self.dim, self.ffn_dim, self.vocab_size
+        per_layer = (d * self.n_heads * self.head_dim
+                     + 2 * d * self.n_kv_heads * self.head_dim
+                     + self.n_heads * self.head_dim * d
+                     + 3 * d * f
+                     + 2 * d)
+        return v * d * 2 + self.n_layers * per_layer + d
+
+
+def llama_configs() -> dict[str, LlamaConfig]:
+    """Preset family: the reference's Llama-3 shapes and its scaled-down
+    bench/debug configs."""
+    return {
+        "llama3-8b": LlamaConfig(),
+        "llama3-70b": LlamaConfig(dim=8192, n_layers=80, n_heads=64,
+                                  n_kv_heads=8, ffn_dim=28672),
+        "llama3-1b": LlamaConfig(dim=2048, n_layers=16, n_heads=32,
+                                 n_kv_heads=8, ffn_dim=8192,
+                                 vocab_size=128256),
+        "bench-350m": LlamaConfig(dim=1024, n_layers=24, n_heads=8,
+                                  n_kv_heads=4, ffn_dim=4096,
+                                  vocab_size=32768, max_seq=2048),
+        "debug": LlamaConfig(dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                             ffn_dim=256, vocab_size=256, max_seq=128),
+    }
+
+
+# ---------------------------------------------------------------- params
+def param_shapes(cfg: LlamaConfig) -> dict:
+    """Shape of every leaf, in the reference's tree layout."""
+    d, hd, L = cfg.dim, cfg.head_dim, cfg.n_layers
+    return {
+        "embed": (cfg.vocab_size, d),
+        "layers": {
+            "attn_norm": (L, d),
+            "wq": (L, d, cfg.n_heads * hd),
+            "wk": (L, d, cfg.n_kv_heads * hd),
+            "wv": (L, d, cfg.n_kv_heads * hd),
+            "wo": (L, cfg.n_heads * hd, d),
+            "mlp_norm": (L, d),
+            "w_gate": (L, d, cfg.ffn_dim),
+            "w_up": (L, d, cfg.ffn_dim),
+            "w_down": (L, cfg.ffn_dim, d),
+        },
+        "final_norm": (d,),
+        "lm_head": (d, cfg.vocab_size),
+    }
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator) -> dict:
+    """Random weights on the generator's device: normal / sqrt(fan_in),
+    norms at one.  Filled one layer slice at a time, so the f32 staging
+    stays one slice big at any model size."""
+    device = generator.device
+    shapes = param_shapes(cfg)
+
+    def normal(shape, fan_in):
+        out = torch.empty(shape, dtype=cfg.dtype, device=device)
+        for sl in (out if len(shape) == 3 else (out,)):
+            sl.copy_(torch.randn(sl.shape, generator=generator,
+                                 device=device) * fan_in ** -0.5)
+        return out
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=device)
+
+    ls = shapes["layers"]
+    nhd = cfg.n_heads * cfg.head_dim
+    return {
+        "embed": normal(shapes["embed"], cfg.dim),
+        "layers": {
+            "attn_norm": ones(ls["attn_norm"]),
+            "wq": normal(ls["wq"], cfg.dim),
+            "wk": normal(ls["wk"], cfg.dim),
+            "wv": normal(ls["wv"], cfg.dim),
+            "wo": normal(ls["wo"], nhd),
+            "mlp_norm": ones(ls["mlp_norm"]),
+            "w_gate": normal(ls["w_gate"], cfg.dim),
+            "w_up": normal(ls["w_up"], cfg.dim),
+            "w_down": normal(ls["w_down"], cfg.ffn_dim),
+        },
+        "final_norm": ones(shapes["final_norm"]),
+        "lm_head": normal(shapes["lm_head"], cfg.dim),
+    }
+
+
+def _layer(params: dict, lid: int) -> dict:
+    return {k: params["layers"][k][lid] for k in LAYER_KEYS}
+
+
+def _no_lora(lora) -> None:
+    if lora:
+        raise NotImplementedError("LoRA banks are not ported yet")
+
+
+# --------------------------------------------------------------- forward
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 dtype) -> torch.Tensor:
+    return table[tokens.long()].to(dtype)
+
+
+def _mlp_block(x, lp, cfg: LlamaConfig):
+    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    gate = h @ lp["w_gate"]
+    up = h @ lp["w_up"]
+    h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+    return x + (h @ lp["w_down"])
+
+
+def _qkv(x, lp, cfg: LlamaConfig):
+    b, s, _ = x.shape
+    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    q = (h @ lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (h @ lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+            lora: dict | None = None):
+    """Prompt pass for serving: final hidden states plus per-layer K/V.
+
+    tokens [b, P] (right-padded).  Returns (hidden [b, P, dim] post final
+    norm, k [L, b, P, n_kv, hd], v likewise), RoPE applied.  Padding rows
+    produce garbage K/V that decode never attends to (causal masking keeps
+    them out of the real rows)."""
+    _no_lora(lora)
+    b, P = tokens.shape
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)
+    cos, sin = rope_frequencies(cfg.head_dim, P, cfg.rope_theta,
+                                device=x.device)
+    ks, vs = [], []
+    for lid in range(cfg.n_layers):
+        lp = _layer(params, lid)
+        q, k, v = _qkv(x, lp, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        o = attention(q, k, v, causal=True)
+        x = x + (o.reshape(b, P, -1) @ lp["wo"])
+        x = _mlp_block(x, lp, cfg)
+        ks.append(k.to(cfg.dtype))
+        vs.append(v.to(cfg.dtype))
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+def init_paged_kv_cache(cfg: LlamaConfig, batch: int, n_pages: int,
+                        page: int, device) -> dict:
+    """Shared page-pool KV cache: per-layer [n_pages, kvh, page, hd]
+    leaves, kv-head major.  Page 0 is the trash page that idle slots'
+    table rows point at."""
+    shape = (n_pages, cfg.n_kv_heads, page, cfg.head_dim)
+    return {"k": [torch.zeros(shape, dtype=cfg.dtype, device=device)
+                  for _ in range(cfg.n_layers)],
+            "v": [torch.zeros(shape, dtype=cfg.dtype, device=device)
+                  for _ in range(cfg.n_layers)],
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def scatter_prefill_pages(cache: dict, ks, vs, page_ids, rows, slots,
+                          true_lens, aligned: bool = True) -> dict:
+    """Write a prefill wave's K/V into the page pool, IN PLACE (returns
+    `cache`).
+
+    ks/vs: [L, W, P, kvh, hd]; page_ids/rows: [W, P] (page id + in-page
+    row per token position; positions past a slot's allocation point at
+    the trash page).  Duplicate wave-padding rows write identical data.
+    Page-aligned waves write whole page blocks; aligned=False forces the
+    per-token coordinate form (suffix waves start mid-page)."""
+    nk = len(cache["k"])
+    W, P = page_ids.shape
+    page = cache["k"][0].shape[2]
+    page_ids = page_ids.long()
+    rows = rows.long()
+    for leaf, src in ((cache["k"], ks), (cache["v"], vs)):
+        for li in range(nk):
+            if not aligned or (P > page and P % page):
+                leaf[li][page_ids, :, rows] = src[li]
+            elif P <= page:
+                leaf[li][page_ids[:, 0], :, :P, :] = src[li].transpose(1, 2)
+            else:
+                m = P // page
+                kvh, hd = src.shape[3], src.shape[4]
+                blocks = src[li].reshape(W, m, page, kvh, hd) \
+                    .permute(0, 1, 3, 2, 4).reshape(W * m, kvh, page, hd)
+                leaf[li][page_ids[:, ::page].reshape(W * m)] = blocks
+    cache["pos"][slots.long()] = true_lens.to(cache["pos"].dtype)
+    return cache
+
+
+def prefill_with_prefix(params: dict, tokens: torch.Tensor,
+                        pos0: torch.Tensor, cfg: LlamaConfig,
+                        k_pages: list, v_pages: list,
+                        prefix_table: torch.Tensor,
+                        lora: dict | None = None):
+    """Suffix prompt pass over a cached paged prefix.
+
+    tokens [b, S]: suffix tokens, right-padded; suffix token j sits at
+    absolute position pos0[b] + j (pos0 a page multiple).  Each layer
+    gathers its prefix rows dense and runs GQA attention where suffix
+    query i admits prefix keys < pos0[b] plus suffix keys j <= i -- plain
+    einsum, as in the reference.  Returns (hidden, ks, vs) with
+    prefill()'s contract."""
+    _no_lora(lora)
+    b, S = tokens.shape
+    page = k_pages[0].shape[2]
+    Pp = prefix_table.shape[1] * page
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)
+    dev = x.device
+    cos, sin = rope_frequencies(cfg.head_dim, Pp + S, cfg.rope_theta,
+                                device=dev)
+    positions = pos0.long()[:, None] + torch.arange(S, device=dev)[None, :]
+    prefix_admit = (torch.arange(Pp, device=dev)[None, None, :]
+                    < pos0.long()[:, None, None])              # [b, 1, Pp]
+    causal = (torch.arange(S, device=dev)[None, :, None]
+              >= torch.arange(S, device=dev)[None, None, :])   # [1, S, S]
+    admit = torch.cat([prefix_admit.expand(b, S, Pp),
+                       causal.expand(b, S, S)], dim=2)         # [b, S, Pp+S]
+    ks_out, vs_out = [], []
+    for lid in range(cfg.n_layers):
+        lp = _layer(params, lid)
+        q, k, v = _qkv(x, lp, cfg)
+        q = apply_rope(q, cos, sin, positions=positions)
+        k = apply_rope(k, cos, sin, positions=positions)
+        k = k.to(cfg.dtype)
+        v = v.to(cfg.dtype)
+        ks_out.append(k)
+        vs_out.append(v)
+        ck = torch.cat([gather_pages(k_pages[lid], prefix_table), k], dim=1)
+        cv = torch.cat([gather_pages(v_pages[lid], prefix_table), v], dim=1)
+        qg = q.reshape(b, S, cfg.n_kv_heads, n_rep, cfg.head_dim)
+        a = torch.einsum("bsgrd,bkgd->bgrsk", qg.float(), ck.float())
+        a = a * cfg.head_dim ** -0.5
+        a = a.masked_fill(~admit[:, None, None], -1e30)
+        probs = torch.softmax(a, dim=-1).to(cfg.dtype)
+        o = torch.einsum("bgrsk,bkgd->bsgrd", probs, cv)
+        x = x + (o.reshape(b, S, cfg.n_heads * cfg.head_dim) @ lp["wo"])
+        x = _mlp_block(x, lp, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.stack(ks_out), torch.stack(vs_out)
+
+
+def decode_step_paged(params: dict, pages: dict, tails: dict,
+                      tokens: torch.Tensor, pos: torch.Tensor,
+                      tail_start: torch.Tensor, j: int,
+                      page_table: torch.Tensor, cfg: LlamaConfig,
+                      lora: dict | None = None, rope=None):
+    """One decode step over the paged cache + in-window tail.
+
+    pages {"k"/"v": [L x [n_pages, kvh, page, hd]]} are read-only here.
+    The new K/V rows are written IN PLACE into tails {"k"/"v": [L x [B,
+    kvh, kt, hd]]} at the shared in-window column `j` (a Python int:
+    every slot's pos advances in lockstep).  `rope` optionally passes the
+    (cos, sin) tables covering maxp * page positions.  Returns (logits
+    [B, vocab] f32, tails)."""
+    _no_lora(lora)
+    b = tokens.shape[0]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    x = embed_lookup(params["embed"], tokens[:, None], cfg.dtype)
+    if rope is None:
+        rope = rope_frequencies(
+            cfg.head_dim, page_table.shape[1] * pages["k"][0].shape[2],
+            cfg.rope_theta, device=x.device)
+    cos, sin = rope
+    positions = pos[:, None]
+    for lid in range(cfg.n_layers):
+        lp = _layer(params, lid)
+        q, k, v = _qkv(x, lp, cfg)
+        q = apply_rope(q, cos, sin, positions=positions)
+        k = apply_rope(k, cos, sin, positions=positions)
+        tails["k"][lid][:, :, j] = k[:, 0].to(cfg.dtype)
+        tails["v"][lid][:, :, j] = v[:, 0].to(cfg.dtype)
+        o = paged_decode_attention(
+            q.reshape(b, cfg.n_kv_heads, n_rep, cfg.head_dim).to(cfg.dtype),
+            pages["k"][lid], pages["v"][lid], tails["k"][lid],
+            tails["v"][lid], page_table, pos, tail_start)
+        x = x + (o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ lp["wo"])
+        x = _mlp_block(x, lp, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return (x[:, 0] @ params["lm_head"]).float(), tails
