@@ -6,11 +6,13 @@ Phases, each printing one JSON line; any failure raises and exits 1:
 
   1. device   -- the card's name and power limit (nvidia-smi), and the
                  kernels built from csrc/ (one nvcc per source, together).
-  2. kernels  -- every kernel of the serving path against its plain
-                 PyTorch version on the card, at the Llama-3-8B main-path
-                 shapes in bf16 plus ragged and edge cases: max abs error
+  2. kernels  -- every kernel of the serving and training paths against
+                 its plain PyTorch version on the card, at the main paths'
+                 shapes in bf16 plus ragged and edge cases: the error
                  against the plain version computed in f32 from the same
-                 inputs, kernel / plain / library times and the bound.
+                 inputs, kernel / plain / library times and the bound.  The
+                 flash backward (dQ, dK/dV) is timed at the `bench-350m`
+                 layer's shapes.
   3. engine_small_f32 -- the whole engine at small depth (`debug`, f32) on
                  CUDA (kernels) and on the CPU (plain versions) from the
                  same parameters: a shared page-aligned prefix, a
@@ -24,6 +26,22 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  tokens of a finished prompt (a prefix-cache hit: the
                  suffix path).  The launch counters are zeroed just before
                  this phase and read just after: both kernels must have run.
+  5. train_small_f32 -- three `make_train_step` steps of `debug` in f32
+                 (TF32 off) at seq 100, batch 2, from the same params and
+                 batch on CUDA (kernels) and on the CPU (plain versions),
+                 with remat flash_resid, nothing and off: losses, pre-clip
+                 grad norms and final params agree; the forward kernel runs
+                 n_layers times a step under flash_resid and twice that
+                 under nothing.
+  6. train_350m -- `bench-350m` at full width and depth in bf16, weights
+                 from seed 0, `default_optimizer(total_steps=1000)`, batch
+                 8 x seq 2048 of seeded random tokens, remat flash_resid:
+                 one warm-up step (lr 0: params unchanged), five timed
+                 steps (loss, grad norm, step ms, tokens/s, MFU, peak
+                 memory; the counters are zeroed just before and read just
+                 after: 24 launches a step of each flash kernel), then one
+                 step under torch.profiler for the device time by kernel
+                 group.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
@@ -31,7 +49,10 @@ repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,6 +67,12 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Relative error |g - ref| / |ref| of the flash backward against its plain
+# version in f32.  bf16: inputs and outputs are rounded to bf16 (2^-9
+# relative each) and the dQ kernel rounds dS to bf16 before dS K, as the
+# TPU kernel does, where the f32 plain version does not: about 3e-3
+# expected, 2e-2 allowed.  f32: summation order alone.
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 SEED = 0
 
 
@@ -133,6 +160,75 @@ def flash_case(timer, name, b, s, hq, hkv, d, dtype, causal=True,
         row["bound_ms"], row["bound_by"] = bound_ms(
             nbytes, 4 * d * pairs,
             BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    return row
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def flash_bwd_case(timer, name, b, s, hq, hkv, d, dtype, causal=True,
+                   timed=False):
+    from ray_tpu_torch.ops.flash_attention import (
+        attention_delta, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_reference, flash_attention_fwd)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q = torch.randn(b, s, hq, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dtype)
+    do = torch.randn(b, s, hq, d, generator=g, device="cuda").to(dtype)
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    ref = flash_attention_bwd_reference(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float(), causal)
+    got = dict(zip(("dq", "dk", "dv"), (dq, dk, dv)))
+    want = dict(zip(("dq", "dk", "dv"), ref))
+    row = {"case": name, "shape": [b, s, hq, hkv, d], "dtype": str(dtype),
+           "causal": causal,
+           "rel_err": {n: rel_err(got[n], want[n]) for n in got},
+           "max_abs_err": {n: max_err(got[n], want[n]) for n in got},
+           "tol_rel": BWD_TOL[dtype]}
+    if max(row["rel_err"].values()) > BWD_TOL[dtype] or not all(
+            torch.isfinite(t.float()).all() for t in got.values()):
+        raise AssertionError(f"flash backward {name}: {row}")
+    if timed:
+        row["dq_ms"] = timer.ms(lambda: flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal))
+        row["dkv_ms"] = timer.ms(lambda: flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal))
+        # One plain function computes dq, dk and dv together.
+        row["plain_ms"] = timer.ms(lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal), iters=3)
+        rep = hq // hkv
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kr = k.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous() \
+            .requires_grad_()
+        vr = v.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous() \
+            .requires_grad_()
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kr, vr, is_causal=causal)
+        dot = do.transpose(1, 2).contiguous()
+        # The backward alone of SDPA: one call for dq, dk and dv together.
+        row["library_ms"] = timer.ms(lambda: torch.autograd.grad(
+            out, (qt, kr, vr), dot, retain_graph=True))
+        del out
+        pairs = b * hq * (s * (s + 1) // 2 if causal else s * s)
+        esz = q.element_size()
+        qb, kb, f32b = q.numel() * esz, k.numel() * esz, lse.numel() * 4
+        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        # Each input read once, each output written once: q, k, v, dO, lse,
+        # delta in; dq (3 products, 6 d flops a pair) or dk, dv (4
+        # products, 8 d); the pair fused: 5 products, 10 d.
+        row["dq_bound_ms"], row["dq_bound_by"] = bound_ms(
+            3 * qb + 2 * kb + 2 * f32b, 6 * d * pairs, rate)
+        row["dkv_bound_ms"], row["dkv_bound_by"] = bound_ms(
+            2 * qb + 4 * kb + 2 * f32b, 8 * d * pairs, rate)
+        row["fused_bound_ms"], row["fused_bound_by"] = bound_ms(
+            3 * qb + 4 * kb + 2 * f32b, 10 * d * pairs, rate)
     return row
 
 
@@ -224,9 +320,20 @@ def phase_kernels(timer):
         paged_case(timer, "f32_hd128_rep8", paged_inputs(
             2, 1, 8, 128, 16, 3, 8, 9, f32, [17, 40], [20, 40])),
     ]
+    flash_bwd = [
+        # One bench-350m layer call: b 8 x s 2048, 8 q / 4 kv heads.
+        flash_bwd_case(timer, "350m_train_layer", 8, 2048, 8, 4, 128, bf,
+                       timed=True),
+        flash_bwd_case(timer, "8b_heads", 1, 1024, 32, 8, 128, bf),
+        flash_bwd_case(timer, "ragged_1000", 1, 1000, 8, 4, 128, bf),
+        flash_bwd_case(timer, "f32_hd64_ragged", 2, 77, 8, 2, 64, f32),
+        flash_bwd_case(timer, "f32_hd32_noncausal", 1, 45, 4, 2, 32, f32,
+                       causal=False),
+        flash_bwd_case(timer, "f32_mqa", 2, 130, 4, 1, 64, f32),
+    ]
     emit({"phase": "kernels", "flash_attention_fwd": flash,
-          "paged_decode_attention": paged})
-    return flash[0], paged[0]
+          "paged_decode_attention": paged, "flash_attention_bwd": flash_bwd})
+    return flash[0], paged[0], flash_bwd[0]
 
 
 # ----------------------------------------------- phase 3: small f32 engine
@@ -288,6 +395,12 @@ def window_sync_check(cfg, params) -> int:
     return len(active)
 
 
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device)
+
+
 def phase_engine_small():
     import dataclasses
 
@@ -301,16 +414,11 @@ def phase_engine_small():
                               dtype=torch.float32)
     cpu_params = llama.init_params(cfg, torch.Generator().manual_seed(SEED))
 
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        return tree.to(device)
-
     n0 = (flash_attention_fwd.launches, paged_decode_attention.launches)
     t0 = time.perf_counter()
-    gpu = run_small(LLMEngine, cfg, to(cpu_params, "cuda"), "cuda")
+    gpu = run_small(LLMEngine, cfg, tree_to(cpu_params, "cuda"), "cuda")
     t_gpu = time.perf_counter() - t0
-    synced_slots = window_sync_check(cfg, to(cpu_params, "cuda"))
+    synced_slots = window_sync_check(cfg, tree_to(cpu_params, "cuda"))
     cpu = run_small(LLMEngine, cfg, cpu_params, "cpu")
     launched = (flash_attention_fwd.launches - n0[0],
                 paged_decode_attention.launches - n0[1])
@@ -405,6 +513,207 @@ def phase_serve_8b(card):
     return launches
 
 
+# --------------------------------------------- phase 5: small f32 training
+def flash_counts() -> dict:
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    return {n: getattr(fa, n).launches for n in FLASH_KERNELS}
+
+
+def zero_flash_counts() -> None:
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    for n in FLASH_KERNELS:
+        getattr(fa, n).launches = 0
+
+
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+# CUDA against CPU in f32: the loss and the pre-clip grad norm to 1e-4
+# relative, the params after three steps to 5e-5 + 1e-4 relative.  Both
+# sides sum in other orders (the kernels' FMA loops, cuBLAS against the
+# CPU's BLAS), and Adam's first normalised steps magnify the noise of
+# gradient elements near zero.
+TRAIN_TOL = dict(atol=5e-5, rtol=1e-4)
+
+
+def phase_train_small():
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.step import (create_train_state,
+                                          default_optimizer, make_train_step,
+                                          param_leaves)
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    base = dataclasses.replace(llama.llama_configs()["debug"],
+                               dtype=torch.float32)
+    opt = default_optimizer(lr=1e-3, warmup=2, total_steps=10,
+                            grad_clip=0.1)
+    params = llama.init_params(base, torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": rng.integers(1, base.vocab_size, size=(2, 101))}
+    runs, row = {}, {"phase": "train_small_f32", "seq": 100, "batch": 2,
+                     "n_layers": base.n_layers, "steps": 3}
+    for label, remat in (("flash_resid", True), ("nothing", True),
+                         ("remat_off", False)):
+        cfg = dataclasses.replace(base, remat=remat,
+                                  remat_mode="nothing" if label == "nothing"
+                                  else "flash_resid")
+        for device in ("cuda", "cpu"):
+            state = create_train_state(SEED, cfg, opt, device=device,
+                                       params=params)
+            step = make_train_step(cfg, opt, device=device)
+            out = {"loss": [], "grad_norm": [], "launches_per_step": []}
+            for _ in range(3):
+                n0 = flash_counts()
+                state, m = step(state, batch)
+                out["loss"].append(m["loss"].item())
+                out["grad_norm"].append(m["grad_norm"].item())
+                out["launches_per_step"].append(
+                    {n: c - n0[n] for n, c in flash_counts().items()})
+            out["params"] = tree_to(state.params, "cpu")
+            runs[label, device] = out
+        gpu, cpu = runs[label, "cuda"], runs[label, "cpu"]
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            param_leaves(gpu["params"]), param_leaves(cpu["params"])))
+        row[label] = {"loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"],
+                      "grad_norm_cuda": gpu["grad_norm"],
+                      "grad_norm_cpu": cpu["grad_norm"],
+                      "param_max_abs_diff": diff,
+                      "launches_per_step": gpu["launches_per_step"][-1]}
+        np.testing.assert_allclose(gpu["loss"], cpu["loss"], rtol=1e-4)
+        np.testing.assert_allclose(gpu["grad_norm"], cpu["grad_norm"],
+                                   rtol=1e-4)
+        for a, b in zip(param_leaves(gpu["params"]),
+                        param_leaves(cpu["params"])):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), **TRAIN_TOL)
+        fwd = 2 * base.n_layers if label == "nothing" else base.n_layers
+        want = {"flash_attention_fwd": fwd,
+                "flash_attention_bwd_dq": base.n_layers,
+                "flash_attention_bwd_dkv": base.n_layers}
+        if any(per != want for per in gpu["launches_per_step"]) or any(
+                c for per in cpu["launches_per_step"] for c in per.values()):
+            raise AssertionError(f"train_small {label}: launches "
+                                 f"{gpu['launches_per_step']} != {want}")
+    row["tol"] = {"loss_rel": 1e-4, "grad_norm_rel": 1e-4,
+                  "params": TRAIN_TOL}
+    emit(row)
+
+
+def named_leaves(tree, prefix=""):
+    """(path, tensor) in param_leaves' order (sorted key paths)."""
+    if isinstance(tree, dict):
+        return [nt for k in sorted(tree)
+                for nt in named_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+# ----------------------------------------------- phase 6: bench-350m steps
+def phase_train_350m(card):
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.tools.profile_serve import kernel_group, kernel_groups
+    from ray_tpu_torch.train.step import (create_train_state,
+                                          default_optimizer, make_train_step)
+
+    cfg = llama.llama_configs()["bench-350m"]
+    batch_size, seq, n_timed = 8, 2048, 5
+    opt = default_optimizer(total_steps=1000)
+    t0 = time.perf_counter()
+    state = create_train_state(SEED, cfg, opt)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(batch_size, seq))).to("cuda")
+    batch = {"inputs": tokens, "targets": tokens}      # bench.py's batch
+    step = make_train_step(cfg, opt)
+    before = {n: p.detach().to("cpu", copy=True)
+              for n, p in named_leaves(state.params)}
+    torch.cuda.reset_peak_memory_stats()
+
+    def moved_share() -> dict:
+        """Per leaf, the share of elements that differ from `before`."""
+        return {n: float((p.detach().cpu() != before[n]).float().mean())
+                for n, p in named_leaves(state.params)}
+
+    t0 = time.perf_counter()
+    state, m = step(state, batch)                      # warm-up, lr 0
+    loss0 = m["loss"].item()
+    warmup_s = time.perf_counter() - t0
+    if any(moved_share().values()):
+        raise AssertionError("the first update (lr 0) moved the params")
+    losses, norms, step_ms = [], [], []
+    torch.cuda.synchronize()
+    zero_flash_counts()
+    for i in range(n_timed):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        if i == 0:                                     # after update 2
+            moved2 = moved_share()
+    launches = flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = moved_share()
+    del before
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels, groups = kernel_groups(prof)
+    device_ms = sum(ms for ms, _ in groups.values())
+    top_other = sorted(((n, ms, c) for n, (ms, c) in kernels.items()
+                        if kernel_group(n) == "other"),
+                       key=lambda t: -t[1])[:10]
+
+    mean_ms = sum(step_ms) / len(step_ms)
+    tokens_per_s = batch_size * seq / (mean_ms / 1e3)
+    flops_per_token = cfg.flops_per_token()
+    row = {"phase": "train_350m", "card": card, "model": "bench-350m",
+           "dtype": "bfloat16", "params": cfg.num_params(),
+           "batch": batch_size, "seq": seq, "remat_mode": cfg.remat_mode,
+           "init_params_s": t_init, "warmup_step_s": warmup_s,
+           "first_loss": loss0, "ln_vocab": math.log(cfg.vocab_size),
+           "loss": losses, "grad_norm": norms, "step_ms": step_ms,
+           "mean_step_ms": mean_ms, "tokens_per_s": tokens_per_s,
+           "flops_per_token": flops_per_token,
+           "mfu": tokens_per_s * flops_per_token / BF16_FLOPS,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_step": {n: c / n_timed
+                                 for n, c in launches.items()},
+           "moved_share_after_update_2": moved2,
+           "moved_share_after_update_6": moved,
+           "traced_step_ms": traced_ms, "traced_device_ms": device_ms,
+           "traced_device_busy_share": device_ms / traced_ms,
+           "traced_groups": {g: {"ms": ms, "launches": n}
+                             for g, (ms, n) in sorted(groups.items())},
+           "traced_top_other": [{"name": n[:100], "ms": ms, "launches": c}
+                                for n, ms, c in top_other]}
+    emit(row)
+    if not all(math.isfinite(x) for x in losses + norms + [loss0]):
+        raise AssertionError(f"non-finite loss or grad norm: {row}")
+    if abs(loss0 - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {loss0} is far from ln(vocab)")
+    if any(c != n_timed * cfg.n_layers for c in launches.values()):
+        raise AssertionError(f"flash launches {launches} != "
+                             f"{cfg.n_layers} per step")
+    # Every matrix moves from the second update on.  The norm weights sit
+    # at 1.0, where a bf16 step is 2^-7: warm-up updates of about lr *
+    # count / warmup (1.5e-5 by the sixth) round away there, as they do in
+    # the reference's bf16 params.
+    still = [n for n, share in moved2.items()
+             if share == 0 and not n.endswith("norm")]
+    if still:
+        raise AssertionError(f"params did not move: {still}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -426,10 +735,14 @@ def main() -> int:
           "build_wall_s": time.perf_counter() - t0, "spilling": regs})
 
     timer = Timer()
-    flash_row, paged_row = phase_kernels(timer)
+    flash_row, paged_row, bwd_row = phase_kernels(timer)
     del timer
     phase_engine_small()
     launches = phase_serve_8b(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_small()
+    train_launches = phase_train_350m(card)
 
     kernels = []
     for name, src, replaces, row in (
@@ -445,6 +758,26 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "case": row["case"],
             "card": card})
+    kernels[1]["launches_train_350m"] = train_launches["flash_attention_fwd"]
+    for name, part, errs, replaces in (
+            ("flash_attention_bwd_dq", "dq", ("dq",),
+             "ray_tpu/ops/flash_attention.py:142"),
+            ("flash_attention_bwd_dkv", "dkv", ("dk", "dv"),
+             "ray_tpu/ops/flash_attention.py:192")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
+            "rel_err": max(bwd_row["rel_err"][e] for e in errs),
+            "tol_rel": bwd_row["tol_rel"], "ms": bwd_row[f"{part}_ms"],
+            "plain_ms": bwd_row["plain_ms"],
+            "bound_ms": bwd_row[f"{part}_bound_ms"],
+            "bound_by": bwd_row[f"{part}_bound_by"],
+            "library_ms": bwd_row["library_ms"],
+            "plain_and_library_cover": "dq, dk and dv together",
+            "fused_bound_ms": bwd_row["fused_bound_ms"],
+            "case": bwd_row["case"], "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

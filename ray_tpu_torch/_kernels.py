@@ -25,7 +25,8 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "paged_decode": "paged_decode.cu"}
 # The `dtype` argument every C entry takes.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,1 +1,1 @@
-"""Model definitions: the Llama-3 decoder's serving surface."""
+"""Model definitions: the Llama-3 decoder's serving and training surface."""

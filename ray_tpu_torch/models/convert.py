@@ -1,4 +1,5 @@
-"""Move a JAX-package parameter tree into the port.
+"""Move a JAX-package parameter tree, or a whole training state, into the
+port.
 
 The caller turns each leaf into a numpy array (`np.asarray(leaf)`), so
 this module needs no JAX.  Keys, shapes and the stacked layer axis stay
@@ -9,7 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.llama import LlamaConfig, param_shapes
+from ray_tpu_torch.train.step import (ClippedAdamW, TrainState,
+                                      create_train_state, param_leaves)
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -36,3 +40,26 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device="cuda") -> dict:
         return t.to(device=device, dtype=cfg.dtype)
 
     return convert(tree, param_shapes(cfg), "")
+
+
+def train_state_from_jax(tree: dict, cfg: LlamaConfig,
+                         optimizer: ClippedAdamW, device=None) -> TrainState:
+    """A port TrainState that continues the reference's run.
+
+    `tree` holds numpy leaves: "params", the AdamW moments "mu" and "nu"
+    (trees shaped like params, taken from optax's ScaleByAdamState), the
+    optimizer's update "count" and the TrainState "step".  The next update
+    reads the schedule at `count` and bias-corrects with count + 1, as
+    optax does."""
+    device = resolve_device(device, "train_state_from_jax")
+    state = create_train_state(0, cfg, optimizer, device=device,
+                               params=params_from_jax(tree["params"], cfg,
+                                                      device))
+    count = torch.tensor(float(np.asarray(tree["count"])))
+    moments = [param_leaves(params_from_jax(tree[k], cfg, device))
+               for k in ("mu", "nu")]
+    for p, mu, nu in zip(param_leaves(state.params), *moments):
+        state.opt_state.state[p] = {"step": count.clone(), "exp_avg": mu,
+                                    "exp_avg_sq": nu}
+    state.step = int(np.asarray(tree["step"]))
+    return state

@@ -7,16 +7,25 @@ The large projections stay `torch.matmul`, as the reference leaves them
 to XLA; attention goes through ops.attention (flash kernel on CUDA) in
 prefill and ops.paged_attention (paged kernel on CUDA) in decode.
 
+The training surface (`forward`, `loss_fn`, `token_logprobs`, `run_trunk`)
+checkpoints each layer when `cfg.remat`, with a selective-checkpoint
+policy per `cfg.remat_mode` (`remat_policy`).
+
 LoRA arguments are accepted as None only: the batched-adapter path is
 not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
+from ray_tpu_torch.ops.losses import cross_entropy
 from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.paged_attention import (gather_pages,
                                                paged_decode_attention)
@@ -38,10 +47,20 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # "flash_resid": recompute everything except the flash forward's
+    # (o, lse); "nothing": full recompute; "dots": save the projection
+    # matmuls; "flash_dots": both (see remat_policy).
+    remat_mode: str = "flash_resid"
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    def flops_per_token(self) -> float:
+        """Approximate training FLOPs per token (fwd+bwd ~ 6N + attention)."""
+        attn = 12 * self.n_layers * self.dim * self.max_seq  # rough
+        return 6.0 * self.num_params() + attn
 
     def num_params(self) -> int:
         d, f, v = self.dim, self.ffn_dim, self.vocab_size
@@ -67,7 +86,8 @@ def llama_configs() -> dict[str, LlamaConfig]:
                                   n_kv_heads=4, ffn_dim=4096,
                                   vocab_size=32768, max_seq=2048),
         "debug": LlamaConfig(dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
-                             ffn_dim=256, vocab_size=256, max_seq=128),
+                             ffn_dim=256, vocab_size=256, max_seq=128,
+                             remat=False),
     }
 
 
@@ -325,3 +345,132 @@ def decode_step_paged(params: dict, pages: dict, tails: dict,
         x = _mlp_block(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x[:, 0] @ params["lm_head"]).float(), tails
+
+
+# --------------------------------------------------------------- training
+REMAT_MODES = ("flash_resid", "nothing", "dots", "flash_dots")
+
+
+def remat_policy(cfg: LlamaConfig | None = None):
+    """Selective-checkpoint policy per cfg.remat_mode, for
+    torch.utils.checkpoint (the reference's jax.checkpoint policies).
+
+    "flash_resid" (default): recompute everything except the flash
+    forward's (o, lse) (`FLASH_FWD_OP`), so the backward does not re-run
+    the forward kernel.  Costs (o + lse) per layer in device memory.  Off
+    the flash path (CPU tensors take the plain attention) nothing is
+    saved, exactly like "nothing".
+
+    "nothing": full recompute, the least memory.
+
+    "dots": save the outputs of the projection matmuls (`aten.mm`, the
+    reference's dots without batch dims); the backward recomputes the
+    elementwise ops and attention.
+
+    "flash_dots": "dots" plus the flash residuals."""
+    mode = cfg.remat_mode if cfg is not None else "flash_resid"
+    if mode not in REMAT_MODES:
+        raise ValueError(f"unknown remat_mode {mode!r}; valid: "
+                         + ", ".join(repr(m) for m in REMAT_MODES))
+    saved = set()
+    if mode in ("dots", "flash_dots"):
+        saved.add(torch.ops.aten.mm.default)
+    if mode in ("flash_resid", "flash_dots"):
+        saved.add(FLASH_FWD_OP)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
+
+
+def _attention_block(x, lp, cfg: LlamaConfig, cos, sin):
+    b, s, _ = x.shape
+    q, k, v = _qkv(x, lp, cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    o = attention(q, k, v, causal=True)
+    return x + (o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp["wo"])
+
+
+def dense_layer(x, lp, cfg: LlamaConfig, cos, sin):
+    """One dense decoder layer (attention + MLP): the single layer body of
+    the training trunk."""
+    return _mlp_block(_attention_block(x, lp, cfg, cos, sin), lp, cfg)
+
+
+def head_loss(params: dict, x: torch.Tensor, targets: torch.Tensor, mask,
+              cfg: LlamaConfig) -> torch.Tensor:
+    """Shared trunk tail: final norm -> lm_head (f32) -> cross entropy."""
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["lm_head"]).float()
+    return cross_entropy(logits, targets, mask)
+
+
+def run_trunk(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+              layer_fn) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shared decoder trunk: embed -> layers -> final norm -> lm_head.
+
+    A Python loop over the stacked [L, ...] axis takes the place of the
+    reference's lax.scan; each layer runs under torch.utils.checkpoint with
+    remat_policy(cfg) when cfg.remat.  The layer leaves are unbound once,
+    so the backward stacks each leaf's gradient in one pass.
+    `layer_fn(x, lp, cos, sin, aux) -> (x, aux)` is the layer body.
+    Returns (logits f32, aux)."""
+    _, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)
+    cos, sin = rope_frequencies(cfg.head_dim, s, cfg.rope_theta,
+                                device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    stacked = [params["layers"][k].unbind(0) for k in LAYER_KEYS]
+
+    def body(x, aux, *leaves):
+        return layer_fn(x, dict(zip(LAYER_KEYS, leaves)), cos, sin, aux)
+
+    policy = remat_policy(cfg) if cfg.remat else None
+    for lid in range(cfg.n_layers):
+        leaves = [t[lid] for t in stacked]
+        if policy is None:
+            x, aux = body(x, aux, *leaves)
+        else:
+            x, aux = checkpoint(
+                body, x, aux, *leaves, use_reentrant=False,
+                context_fn=functools.partial(
+                    create_selective_checkpoint_contexts, policy))
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float(), aux
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig
+            ) -> torch.Tensor:
+    """tokens [b, s] int -> logits [b, s, vocab] float32."""
+    def layer_fn(x, lp, cos, sin, aux):
+        return dense_layer(x, lp, cfg, cos, sin), aux
+
+    return run_trunk(params, tokens, cfg, layer_fn)[0]
+
+
+def split_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """{"tokens": [b, s+1]} or {"inputs", "targets"} -> (inputs, targets)."""
+    if "inputs" in batch:
+        return batch["inputs"], batch["targets"]
+    return batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+
+
+def loss_fn(params: dict, batch: dict, cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross entropy; batch = {"tokens": [b, s+1]} or
+    {"inputs", "targets"}, with an optional "mask"."""
+    inputs, targets = split_batch(batch)
+    logits = forward(params, inputs, cfg)
+    return cross_entropy(logits, targets, batch.get("mask"))
+
+
+def token_logprobs(params: dict, tokens: torch.Tensor, cfg: LlamaConfig
+                   ) -> torch.Tensor:
+    """out[b, t] = log p(tokens[b, t+1] | tokens[b, :t+1]) for t in
+    [0, s-2]: one teacher-forced forward, f32 log-softmax, [b, s-1].
+    Positions past a sequence's true length score garbage; callers mask."""
+    logits = forward(params, tokens[:, :-1], cfg)
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]

@@ -1,10 +1,12 @@
 """Attention dispatcher (port of ray_tpu/ops/attention.py).
 
 On CUDA tensors, causal self-attention (q_len == k_len, no offset) with
-head_dim 32, 64 or 128 goes through the hand-written flash kernel at any
-sequence length: the kernel masks the ragged edge, so the TPU's
-seq % 128 and head_dim % 128 tiling gates do not apply.  Any other CUDA
-call raises.  CPU tensors take the plain version, `xla_attention`.
+head_dim 32, 64 or 128 goes through the flash autograd Function (forward
+kernel; dQ and dK/dV kernels in the backward) at any sequence length: the
+kernels mask the ragged edge, so the TPU's seq % 128 and head_dim % 128
+tiling gates do not apply.  Any other CUDA call raises.  CPU tensors take
+the plain version, `xla_attention`, as the reference does off-TPU; both
+paths carry gradients.
 """
 from __future__ import annotations
 

@@ -43,6 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops.paged_attention import merge_tail_pages
 from ray_tpu_torch.ops.rope import rope_frequencies
@@ -69,15 +70,6 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 15)
     x = (x * 0x2C1B3C6D) & _M32
     return x ^ (x >> 16)
-
-
-def _resolve_device(device) -> torch.device:
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "LLMEngine runs on CUDA and no CUDA device is available; pass "
-            "device='cpu' to run the plain PyTorch versions")
-    return device
 
 
 @dataclass
@@ -118,7 +110,7 @@ class LLMEngine:
                  kv_pages: int | None = None,
                  prefix_cache: bool | None = None,
                  kv_preempt: bool | None = None, device=None):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "LLMEngine")
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq

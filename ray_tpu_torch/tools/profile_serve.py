@@ -23,15 +23,38 @@ import torch
 PROMPTS = [312, 1000, 457, 803, 640, 999, 388, 725]
 GROUPS = (("paged_decode", "paged_decode_kernel"),
           ("flash_fwd", "flash_fwd_kernel"),
+          ("flash_bwd_dq", "flash_bwd_dq_kernel"),
+          ("flash_bwd_dkv", "flash_bwd_dkv_kernel"),
           ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "gemv")))
 
 
-def _group(name: str) -> str:
+def kernel_group(name: str) -> str:
     for label, keys in GROUPS:
         keys = (keys,) if isinstance(keys, str) else keys
         if any(k in name.lower() for k in keys):
             return label
     return "other"
+
+
+def kernel_groups(prof) -> tuple[dict, dict]:
+    """Device time of a torch.profiler trace: ({kernel name: [ms, n]},
+    {group: [ms, n]}) over every CUDA event but the ranges that
+    annotations (such as Optimizer.step) mirror onto the device timeline,
+    which would count their kernels twice."""
+    kernels = {}
+    for evt in prof.events():
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        k = kernels.setdefault(evt.name, [0.0, 0])
+        k[0] += evt.time_range.elapsed_us() / 1e3
+        k[1] += 1
+    groups = {}
+    for name, (ms, n) in kernels.items():
+        g = groups.setdefault(kernel_group(name), [0.0, 0])
+        g[0] += ms
+        g[1] += n
+    return kernels, groups
 
 
 def main() -> None:
@@ -66,18 +89,7 @@ def main() -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         eng.stop()
-    kernels = {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        k = kernels.setdefault(evt.name, [0.0, 0])
-        k[0] += evt.time_range.elapsed_us() / 1e3
-        k[1] += 1
-    groups = {}
-    for name, (ms, n) in kernels.items():
-        g = groups.setdefault(_group(name), [0.0, 0])
-        g[0] += ms
-        g[1] += n
+    kernels, groups = kernel_groups(prof)
     device_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     print(json.dumps({

@@ -1,6 +1,6 @@
 """Layering of the port: ray_tpu_torch and chip_smoke.py import nothing of
 JAX or of the JAX package, call no library attention or compiler, and the
-engine refuses to fall back to the CPU quietly."""
+entry points refuse to fall back to the CPU quietly."""
 import ast
 import os
 
@@ -41,7 +41,9 @@ def test_walk_covers_the_package_and_chip_smoke():
     for rel in ("chip_smoke.py", "ray_tpu_torch/serve/llm.py",
                 "ray_tpu_torch/models/llama.py",
                 "ray_tpu_torch/ops/paged_attention.py",
-                "ray_tpu_torch/ops/flash_attention.py"):
+                "ray_tpu_torch/ops/flash_attention.py",
+                "ray_tpu_torch/ops/losses.py",
+                "ray_tpu_torch/train/step.py"):
         assert rel in rels, rel
     assert all(list(_imports_of(p)) for p in files if
                not p.endswith("__init__.py"))
@@ -74,3 +76,22 @@ def test_engine_without_device_raises_when_cuda_is_absent():
         pytest.skip("a CUDA device is present: the default engine runs")
     with pytest.raises(RuntimeError, match="CUDA"):
         LLMEngine(llama_configs()["debug"])
+
+
+def test_training_entry_points_raise_when_cuda_is_absent():
+    from ray_tpu_torch.models.convert import train_state_from_jax
+    from ray_tpu_torch.models.llama import llama_configs
+    from ray_tpu_torch.train.step import (create_train_state,
+                                          default_optimizer, make_train_step)
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default entry points run")
+    cfg, opt = llama_configs()["debug"], default_optimizer()
+    for call in (lambda: create_train_state(0, cfg, opt),
+                 lambda: make_train_step(cfg, opt),
+                 lambda: train_state_from_jax({}, cfg, opt)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    state = create_train_state(0, cfg, opt, device="cpu")
+    assert state.step == 0 and state.params["embed"].device.type == "cpu"
+    assert callable(make_train_step(cfg, opt, device="cpu"))
