@@ -8,11 +8,13 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  kernels built from csrc/ (one nvcc per source, together).
   2. kernels  -- every kernel of the serving and training paths against
                  its plain PyTorch version on the card, at the main paths'
-                 shapes in bf16 plus ragged and edge cases: the error
-                 against the plain version computed in f32 from the same
-                 inputs, kernel / plain / library times and the bound.  The
-                 flash backward (dQ, dK/dV) is timed at the `bench-350m`
-                 layer's shapes.
+                 shapes in bf16 plus ragged and edge cases (head_dim 32,
+                 64 and 128): the error against the plain version computed
+                 in f32 from the same inputs, kernel / plain / library
+                 times and the bound.  The flash forward is timed at the
+                 8B wave and the `bench-350m` layer, the flash backward
+                 (dQ, dK/dV) at the `bench-350m` layer; the f32 routes
+                 (FMA kernels) at the `debug` training shapes.
   3. engine_small_f32 -- the whole engine at small depth (`debug`, f32) on
                  CUDA (kernels) and on the CPU (plain versions) from the
                  same parameters: a shared page-aligned prefix, a
@@ -25,25 +27,30 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  tokens each, then a ninth that shares the first 512
                  tokens of a finished prompt (a prefix-cache hit: the
                  suffix path).  The launch counters are zeroed just before
-                 this phase and read just after: both kernels must have run.
+                 this phase and read just after: both kernels must have
+                 run, the forward on its bf16 route only.
   5. train_small_f32 -- three `make_train_step` steps of `debug` in f32
                  (TF32 off) at seq 100, batch 2, from the same params and
                  batch on CUDA (kernels) and on the CPU (plain versions),
                  with remat flash_resid, nothing and off: losses, pre-clip
                  grad norms and final params agree; the forward kernel runs
                  n_layers times a step under flash_resid and twice that
-                 under nothing.
+                 under nothing, the forward and dK/dV on their f32 (FMA)
+                 routes only.
   6. train_350m -- `bench-350m` at full width and depth in bf16, weights
                  from seed 0, `default_optimizer(total_steps=1000)`, batch
                  8 x seq 2048 of seeded random tokens, remat flash_resid:
                  one warm-up step (lr 0: params unchanged), five timed
                  steps (loss, grad norm, step ms, tokens/s, MFU, peak
                  memory; the counters are zeroed just before and read just
-                 after: 24 launches a step of each flash kernel), then one
-                 step under torch.profiler for the device time by kernel
-                 group.
+                 after: 24 launches a step of each flash kernel, the
+                 forward and dK/dV on their bf16 (wgmma) routes only), then
+                 one step under torch.profiler for the device time by
+                 kernel group, in which no FMA forward or dK/dV kernel may
+                 run.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}, one entry per kernel
+(the forward and dK/dV: one per dtype route); the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -54,6 +61,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -69,9 +77,10 @@ F32_FLOPS = 67e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # Relative error |g - ref| / |ref| of the flash backward against its plain
 # version in f32.  bf16: inputs and outputs are rounded to bf16 (2^-9
-# relative each) and the dQ kernel rounds dS to bf16 before dS K, as the
-# TPU kernel does, where the f32 plain version does not: about 3e-3
-# expected, 2e-2 allowed.  f32: summation order alone.
+# relative each), the dQ kernel rounds dS to bf16 before dS K, as the TPU
+# kernel does, and the dK/dV kernel rounds P and dS to bf16 for the tensor
+# cores, where the f32 plain version does neither: about 3-5e-3 expected,
+# 2e-2 allowed.  f32: summation order alone.
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 SEED = 0
 
@@ -112,6 +121,39 @@ class Timer:
             b.synchronize()
             total += a.elapsed_time(b)
         return total / iters
+
+
+def kernel_name(mangled: str) -> str:
+    """`flash_fwd_wgmma_kernel<128>` from an Itanium-mangled kernel name."""
+    rest, parts = mangled[mangled.index("_ZN") + 3:], []
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        parts.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
+    args = re.match(r"I(\w+?)EE", rest)
+    if not args:
+        return parts[-1]
+    a = args.group(1).replace("13__nv_bfloat16", "bf16,")
+    a = re.sub(r"^f", "f32,", a).replace("Li", "")
+    return f"{parts[-1]}<{a}>"
+
+
+def ptxas_report(log: str) -> dict:
+    """From one source's `ptxas -v` log: registers per kernel, the spill
+    line of each kernel that spills, and the performance warnings (such as
+    wgmma serialised for want of registers)."""
+    regs, spills, warnings, name = {}, {}, [], None
+    for ln in (x.strip() for x in log.splitlines()):
+        m = re.search(r"(?:entry function '|properties for )(_ZN[^' ]+)", ln)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "spill" in ln and name and " 0 bytes spill stores" not in ln:
+            spills[name] = ln
+        elif "Used" in ln and "registers" in ln and name:
+            regs[name] = int(re.search(r"Used (\d+) registers", ln).group(1))
+        elif "Performance Loss" in ln or "ignored" in ln:
+            warnings.append(ln[:240])
+    return {"registers": regs, "spilling": spills, "warnings": warnings}
 
 
 def bound_ms(nbytes: float, flops: float, flops_rate: float):
@@ -292,13 +334,24 @@ MAIN_PROMPTS = [312, 1000, 457, 803, 640, 999, 388, 725]   # phase 4 lengths
 
 
 def phase_kernels(timer):
+    """Rows by case name: {"fwd": {...}, "paged": {...}, "bwd": {...}}."""
     bf, f32 = torch.bfloat16, torch.float32
     flash = [
         # The 8-request wave's prefill: bucket 1024, Llama-3-8B heads.
         flash_case(timer, "8b_wave_bucket1024", 8, 1024, 32, 8, 128, bf,
                    timed=True),
+        # One bench-350m layer call: b 8 x s 2048, 8 q / 4 kv heads.
+        flash_case(timer, "350m_train_layer", 8, 2048, 8, 4, 128, bf,
+                   timed=True),
         flash_case(timer, "8b_single_bucket512", 1, 512, 32, 8, 128, bf),
         flash_case(timer, "ragged_1000", 1, 1000, 32, 8, 128, bf),
+        flash_case(timer, "bf16_hd64_ragged", 2, 333, 8, 2, 64, bf),
+        flash_case(timer, "bf16_hd32_ragged", 1, 517, 4, 1, 32, bf),
+        flash_case(timer, "bf16_noncausal", 1, 300, 4, 2, 128, bf,
+                   causal=False),
+        # The f32 route (FMA) at the `debug` training shapes.
+        flash_case(timer, "f32_debug_train", 2, 100, 4, 2, 32, f32,
+                   timed=True),
         flash_case(timer, "f32_hd64_ragged", 2, 77, 8, 2, 64, f32),
         flash_case(timer, "f32_hd32_noncausal", 1, 45, 4, 2, 32, f32,
                    causal=False),
@@ -326,6 +379,13 @@ def phase_kernels(timer):
                        timed=True),
         flash_bwd_case(timer, "8b_heads", 1, 1024, 32, 8, 128, bf),
         flash_bwd_case(timer, "ragged_1000", 1, 1000, 8, 4, 128, bf),
+        flash_bwd_case(timer, "bf16_hd64_ragged", 2, 333, 8, 2, 64, bf),
+        flash_bwd_case(timer, "bf16_hd32_ragged", 1, 517, 4, 1, 32, bf),
+        flash_bwd_case(timer, "bf16_noncausal", 1, 300, 4, 2, 128, bf,
+                       causal=False),
+        # The f32 routes (FMA) at the `debug` training shapes.
+        flash_bwd_case(timer, "f32_debug_train", 2, 100, 4, 2, 32, f32,
+                       timed=True),
         flash_bwd_case(timer, "f32_hd64_ragged", 2, 77, 8, 2, 64, f32),
         flash_bwd_case(timer, "f32_hd32_noncausal", 1, 45, 4, 2, 32, f32,
                        causal=False),
@@ -333,7 +393,8 @@ def phase_kernels(timer):
     ]
     emit({"phase": "kernels", "flash_attention_fwd": flash,
           "paged_decode_attention": paged, "flash_attention_bwd": flash_bwd})
-    return flash[0], paged[0], flash_bwd[0]
+    return {"fwd": {r["case"]: r for r in flash}, "paged": paged[0],
+            "bwd": {r["case"]: r for r in flash_bwd}}
 
 
 # ----------------------------------------------- phase 3: small f32 engine
@@ -405,7 +466,6 @@ def phase_engine_small():
     import dataclasses
 
     from ray_tpu_torch.models import llama
-    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
     from ray_tpu_torch.ops.paged_attention import paged_decode_attention
     from ray_tpu_torch.serve.llm import LLMEngine
 
@@ -414,34 +474,37 @@ def phase_engine_small():
                               dtype=torch.float32)
     cpu_params = llama.init_params(cfg, torch.Generator().manual_seed(SEED))
 
-    n0 = (flash_attention_fwd.launches, paged_decode_attention.launches)
+    n0 = (flash_counts(), paged_decode_attention.launches)
     t0 = time.perf_counter()
     gpu = run_small(LLMEngine, cfg, tree_to(cpu_params, "cuda"), "cuda")
     t_gpu = time.perf_counter() - t0
     synced_slots = window_sync_check(cfg, tree_to(cpu_params, "cuda"))
     cpu = run_small(LLMEngine, cfg, cpu_params, "cpu")
-    launched = (flash_attention_fwd.launches - n0[0],
-                paged_decode_attention.launches - n0[1])
+    fwd = {n: c - n0[0][n] for n, c in flash_counts().items()
+           if n.startswith("flash_attention_fwd")}
+    launched = {**fwd, "paged_decode_attention":
+                paged_decode_attention.launches - n0[1]}
     same = {k: gpu[k] == cpu[k] for k in ("prefix", "cow", "preempt")}
     row = {"phase": "engine_small_f32", "same_tokens": same,
            "prefix_hit_tokens": gpu["hits"], "cow_copies": gpu["cow_copies"],
            "preemptions": gpu["preemptions"],
            "window_without_host_sync_slots": synced_slots,
-           "kernel_launches": {"flash_attention_fwd": launched[0],
-                               "paged_decode_attention": launched[1]},
+           "kernel_launches": launched,
            "cuda_seconds": t_gpu}
     emit(row)
     if not all(same.values()) or gpu != cpu:
         raise AssertionError(f"CUDA and CPU engines disagree: {gpu} {cpu}")
     if gpu["preemptions"] == 0 or gpu["cow_copies"] == 0 \
-            or gpu["hits"] == 0 or min(launched) == 0:
+            or gpu["hits"] == 0 or launched["paged_decode_attention"] == 0 \
+            or launched["flash_attention_fwd/fma"] == 0 \
+            or launched["flash_attention_fwd/wgmma"]:
         raise AssertionError(f"small engine missed a path: {row}")
+    return launched
 
 
 # ----------------------------------------------- phase 4: full-width 8B
 def phase_serve_8b(card):
     from ray_tpu_torch.models import llama
-    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
     from ray_tpu_torch.ops.paged_attention import paged_decode_attention
     from ray_tpu_torch.serve.llm import LLMEngine
 
@@ -471,7 +534,7 @@ def phase_serve_8b(card):
         eng.generate(rng.integers(1, cfg.vocab_size, size=300).tolist(),
                      max_new_tokens=8)
         torch.cuda.synchronize()
-        flash_attention_fwd.launches = 0
+        zero_flash_counts()
         paged_decode_attention.launches = 0
         s0 = eng.stats()
         t_wave = time.perf_counter()
@@ -482,8 +545,9 @@ def phase_serve_8b(card):
             1, cfg.vocab_size, size=200).tolist()
         r9 = eng.submit(ninth, max_new_tokens=64).result(timeout=600)
         torch.cuda.synchronize()
-        launches = {"flash_attention_fwd": flash_attention_fwd.launches,
-                    "paged_decode_attention": paged_decode_attention.launches}
+        launches = {n: c for n, c in flash_counts().items()
+                    if n.startswith("flash_attention_fwd")}
+        launches["paged_decode_attention"] = paged_decode_attention.launches
         s1 = eng.stats()
     finally:
         eng.stop()
@@ -495,9 +559,12 @@ def phase_serve_8b(card):
     hit = s1["prefix_hit_tokens"] - s0["prefix_hit_tokens"]
     if hit < 512:
         raise AssertionError(f"ninth request missed the prefix cache: {s1}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
+    if launches["paged_decode_attention"] == 0 \
+            or launches["flash_attention_fwd/wgmma"] == 0 \
+            or launches["flash_attention_fwd/wgmma"] \
+            != launches["flash_attention_fwd"]:
+        raise AssertionError(f"a kernel of the path never launched, or the "
+                             f"bf16 forward left its route: {launches}")
     ttft = [r["ttft_s"] for r in res]
     decode_s = max(r["total_s"] for r in res) - max(ttft)
     emit({"phase": "serve_8b", "card": card, "model": "llama3-8b",
@@ -515,16 +582,27 @@ def phase_serve_8b(card):
 
 # --------------------------------------------- phase 5: small f32 training
 def flash_counts() -> dict:
+    """Launches of each flash wrapper and, as "<wrapper>/<route>", of each
+    dtype route of the forward and dK/dV."""
     from ray_tpu_torch.ops import flash_attention as fa
 
-    return {n: getattr(fa, n).launches for n in FLASH_KERNELS}
+    out = {}
+    for n in FLASH_KERNELS:
+        fn = getattr(fa, n)
+        out[n] = fn.launches
+        for route, c in getattr(fn, "launches_by_route", {}).items():
+            out[f"{n}/{route}"] = c
+    return out
 
 
 def zero_flash_counts() -> None:
     from ray_tpu_torch.ops import flash_attention as fa
 
     for n in FLASH_KERNELS:
-        getattr(fa, n).launches = 0
+        fn = getattr(fa, n)
+        fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
 
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -554,6 +632,7 @@ def phase_train_small():
     batch = {"tokens": rng.integers(1, base.vocab_size, size=(2, 101))}
     runs, row = {}, {"phase": "train_small_f32", "seq": 100, "batch": 2,
                      "n_layers": base.n_layers, "steps": 3}
+    zero_flash_counts()
     for label, remat in (("flash_resid", True), ("nothing", True),
                          ("remat_off", False)):
         cfg = dataclasses.replace(base, remat=remat,
@@ -588,16 +667,21 @@ def phase_train_small():
                         param_leaves(cpu["params"])):
             np.testing.assert_allclose(a.numpy(), b.numpy(), **TRAIN_TOL)
         fwd = 2 * base.n_layers if label == "nothing" else base.n_layers
-        want = {"flash_attention_fwd": fwd,
+        want = {"flash_attention_fwd": fwd, "flash_attention_fwd/fma": fwd,
+                "flash_attention_fwd/wgmma": 0,
                 "flash_attention_bwd_dq": base.n_layers,
-                "flash_attention_bwd_dkv": base.n_layers}
+                "flash_attention_bwd_dkv": base.n_layers,
+                "flash_attention_bwd_dkv/fma": base.n_layers,
+                "flash_attention_bwd_dkv/wgmma": 0}
         if any(per != want for per in gpu["launches_per_step"]) or any(
                 c for per in cpu["launches_per_step"] for c in per.values()):
             raise AssertionError(f"train_small {label}: launches "
                                  f"{gpu['launches_per_step']} != {want}")
     row["tol"] = {"loss_rel": 1e-4, "grad_norm_rel": 1e-4,
                   "params": TRAIN_TOL}
+    row["launches"] = launches = flash_counts()
     emit(row)
+    return launches
 
 
 def named_leaves(tree, prefix=""):
@@ -671,6 +755,8 @@ def phase_train_350m(card):
     top_other = sorted(((n, ms, c) for n, (ms, c) in kernels.items()
                         if kernel_group(n) == "other"),
                        key=lambda t: -t[1])[:10]
+    fma_traced = {n[:100]: c for n, (_, c) in kernels.items()
+                  if "flash_fwd_kernel" in n or "flash_bwd_dkv_kernel" in n}
 
     mean_ms = sum(step_ms) / len(step_ms)
     tokens_per_s = batch_size * seq / (mean_ms / 1e3)
@@ -693,6 +779,7 @@ def phase_train_350m(card):
            "traced_device_busy_share": device_ms / traced_ms,
            "traced_groups": {g: {"ms": ms, "launches": n}
                              for g, (ms, n) in sorted(groups.items())},
+           "traced_fma_flash_launches": fma_traced,
            "traced_top_other": [{"name": n[:100], "ms": ms, "launches": c}
                                 for n, ms, c in top_other]}
     emit(row)
@@ -700,9 +787,18 @@ def phase_train_350m(card):
         raise AssertionError(f"non-finite loss or grad norm: {row}")
     if abs(loss0 - math.log(cfg.vocab_size)) > 1.0:
         raise AssertionError(f"first loss {loss0} is far from ln(vocab)")
-    if any(c != n_timed * cfg.n_layers for c in launches.values()):
+    if any(c != (0 if n.endswith("/fma") else n_timed * cfg.n_layers)
+           for n, c in launches.items()):
         raise AssertionError(f"flash launches {launches} != "
-                             f"{cfg.n_layers} per step")
+                             f"{cfg.n_layers} per step, all bf16 routes")
+    if fma_traced:
+        raise AssertionError(f"FMA flash kernels ran in the bf16 step: "
+                             f"{fma_traced}")
+    traced = {g: groups.get(g, [0.0, 0])[1]
+              for g in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if any(n != cfg.n_layers for n in traced.values()):
+        raise AssertionError(f"traced step's flash groups {traced} != "
+                             f"{cfg.n_layers} launches each")
     # Every matrix moves from the second update on.  The norm weights sit
     # at 1.0, where a bf16 step is 2^-7: warm-up updates of about lr *
     # count / warmup (1.5e-5 by the sixth) round away there, as they do in
@@ -725,59 +821,86 @@ def main() -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     built = _kernels.build_all()
-    regs = {n: [ln.strip() for ln in _kernels.nvcc_log(n).splitlines()
-                if "spill" in ln and " 0 bytes spill stores" not in ln]
-            for n in _kernels.SOURCES}
+    ptxas = {n: ptxas_report(_kernels.nvcc_log(n)) for n in _kernels.SOURCES}
     emit({"phase": "device", "card": card,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": built,
-          "build_wall_s": time.perf_counter() - t0, "spilling": regs})
+          "build_wall_s": time.perf_counter() - t0,
+          "spilling": {n: r["spilling"] for n, r in ptxas.items()},
+          "registers": {n: r["registers"] for n, r in ptxas.items()},
+          "ptxas_warnings": {n: r["warnings"] for n, r in ptxas.items()}})
 
     timer = Timer()
-    flash_row, paged_row, bwd_row = phase_kernels(timer)
+    rows = phase_kernels(timer)
     del timer
-    phase_engine_small()
-    launches = phase_serve_8b(card)
+    small = phase_engine_small()
+    serve = phase_serve_8b(card)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_small()
-    train_launches = phase_train_350m(card)
+    train_small = phase_train_small()
+    train = phase_train_350m(card)
 
-    kernels = []
-    for name, src, replaces, row in (
-            ("paged_decode_attention", "ray_tpu_torch/csrc/paged_decode.cu",
-             "ray_tpu/ops/paged_attention.py:53", paged_row),
-            ("flash_attention_fwd", "ray_tpu_torch/csrc/flash_fwd.cu",
-             "ray_tpu/ops/flash_attention.py:38", flash_row)):
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": row["max_abs_err"], "tol": row["tol"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "case": row["case"],
-            "card": card})
-    kernels[1]["launches_train_350m"] = train_launches["flash_attention_fwd"]
-    for name, part, errs, replaces in (
-            ("flash_attention_bwd_dq", "dq", ("dq",),
-             "ray_tpu/ops/flash_attention.py:142"),
-            ("flash_attention_bwd_dkv", "dkv", ("dk", "dv"),
-             "ray_tpu/ops/flash_attention.py:192")):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "ray_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": replaces, "launches": train_launches[name],
-            "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
-            "rel_err": max(bwd_row["rel_err"][e] for e in errs),
-            "tol_rel": bwd_row["tol_rel"], "ms": bwd_row[f"{part}_ms"],
-            "plain_ms": bwd_row["plain_ms"],
-            "bound_ms": bwd_row[f"{part}_bound_ms"],
-            "bound_by": bwd_row[f"{part}_bound_by"],
-            "library_ms": bwd_row["library_ms"],
-            "plain_and_library_cover": "dq, dk and dv together",
-            "fused_bound_ms": bwd_row["fused_bound_ms"],
-            "case": bwd_row["case"], "card": card})
+    def entry(name, kernel, src, replaces, launches, row, part=None,
+              errs=()):
+        e = {"name": name, "kernel": kernel, "route": "cuda",
+             "source": "ray_tpu_torch/csrc/" + src, "replaces": replaces,
+             "dtype": row["dtype"], "launches": launches,
+             "case": row["case"], "card": card}
+        if part is None:
+            e.update({k: row[k] for k in (
+                "max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")})
+        else:
+            e.update({
+                "max_abs_err": max(row["max_abs_err"][x] for x in errs),
+                "rel_err": max(row["rel_err"][x] for x in errs),
+                "tol_rel": row["tol_rel"], "ms": row[f"{part}_ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row[f"{part}_bound_ms"],
+                "bound_by": row[f"{part}_bound_by"],
+                "library_ms": row["library_ms"],
+                "plain_and_library_cover": "dq, dk and dv together",
+                "fused_bound_ms": row["fused_bound_ms"]})
+        return e
+
+    fwd, bwd = rows["fwd"], rows["bwd"]
+    fa_py = "ray_tpu/ops/flash_attention.py"
+    kernels = [
+        entry("paged_decode_attention", "paged_decode_kernel",
+              "paged_decode.cu", "ray_tpu/ops/paged_attention.py:53",
+              serve["paged_decode_attention"], rows["paged"]),
+        entry("flash_attention_fwd", "flash_fwd_wgmma_kernel",
+              "flash_fwd.cu", f"{fa_py}:38",
+              serve["flash_attention_fwd/wgmma"], fwd["8b_wave_bucket1024"]),
+        entry("flash_attention_fwd", "flash_fwd_kernel", "flash_fwd.cu",
+              f"{fa_py}:38", small["flash_attention_fwd/fma"],
+              fwd["f32_debug_train"]),
+        entry("flash_attention_bwd_dq", "flash_bwd_dq_kernel",
+              "flash_bwd.cu", f"{fa_py}:142",
+              train["flash_attention_bwd_dq"], bwd["350m_train_layer"],
+              "dq", ("dq",)),
+        entry("flash_attention_bwd_dkv", "flash_bwd_dkv_wgmma_kernel",
+              "flash_bwd.cu", f"{fa_py}:192",
+              train["flash_attention_bwd_dkv/wgmma"],
+              bwd["350m_train_layer"], "dkv", ("dk", "dv")),
+        entry("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel",
+              "flash_bwd.cu", f"{fa_py}:192",
+              train_small["flash_attention_bwd_dkv/fma"],
+              bwd["f32_debug_train"], "dkv", ("dk", "dv")),
+    ]
+    # Launches on the other main path of each kernel, and the forward's
+    # time at the training layer's shapes.
+    kernels[1]["launches_train_350m"] = train["flash_attention_fwd/wgmma"]
+    kernels[1]["ms_350m_train_layer"] = fwd["350m_train_layer"]["ms"]
+    kernels[1]["bound_ms_350m_train_layer"] = \
+        fwd["350m_train_layer"]["bound_ms"]
+    kernels[1]["library_ms_350m_train_layer"] = \
+        fwd["350m_train_layer"]["library_ms"]
+    kernels[2]["launches_train_small_f32"] = \
+        train_small["flash_attention_fwd/fma"]
+    kernels[3]["launches_train_small_f32"] = \
+        train_small["flash_attention_bwd_dq"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Each source compiles with nvcc for sm_90a into its own shared library
 with a plain C interface, loaded with ctypes.  The build happens at first
 use, from the checkout's own sources, into `_build/<hash>/` beside this
-file, where the hash covers the sources and the flags, so an edited
-kernel never loads a stale library.  `build_all()` starts one nvcc per
+file, where the hash covers the source, every shared header
+(csrc/*.cuh) and the flags, so an edited kernel or header never loads a
+stale library.  `build_all()` starts one nvcc per
 source at once; the engine loop calls kernels from its own thread, so
 loading takes a lock.
 
@@ -50,8 +51,11 @@ def _nvcc() -> str:
 
 def _paths(name: str) -> tuple[str, str, str]:
     src = os.path.join(_CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(_CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     out_dir = os.path.join(_BUILD, digest.hexdigest()[:16])
     return src, out_dir, os.path.join(out_dir, f"lib{name}.so")
 

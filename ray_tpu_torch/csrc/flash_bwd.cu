@@ -7,7 +7,7 @@
 // comes in precomputed,
 //   dQ = dS K                  (dS rounded to K's dtype first, as the
 //                               Pallas kernel casts it before the product)
-//   dV = sum over the n_rep q heads of P^T dO     (P and dS stay f32)
+//   dV = sum over the n_rep q heads of P^T dO
 //   dK = sum over the n_rep q heads of dS^T Q
 // over q/dO [b, sq, hq, d] and k/v [b, skv, hkv, d] in the public layout,
 // read in place, KV head hi / (hq / hkv); lse and delta are [b, hq, sq] f32.
@@ -20,8 +20,33 @@
 // per byte each must read and write, well above the H100's ridge of about
 // 295 in bf16, so both are compute-bound.
 //
-// Design (the simple, right version, like flash_fwd.cu): FMA loops over
-// tiles staged in shared memory as f32, no tensor cores.
+// dK/dV in bf16 (flash_bwd_dkv_wgmma_kernel): one block per (128-row kv
+// tile, kv head, batch), the heaviest causal tiles (the first) launched
+// first.  K and V stay resident in shared memory; one producer warp streams
+// the Q and dO tiles (64 q rows, by TMA) and the lse and delta rows of
+// every q head of the group, from the diagonal on when causal, through a
+// ring of two stages.  The producer warpgroup gives its registers to the
+// consumers (setmaxnreg 40 / 232): two f32 64 x d accumulators per thread
+// plus S^T and dP^T do not fit in the 168 a thread of a 384-thread launch.
+// Two consumer warpgroups own 64 kv rows each and compute the transposes
+// directly, so nothing is transposed through shared memory:
+//   S^T = K Q^T and dP^T = V dO^T   wgmma m64n64k16, both operands K-major
+//                                   in shared memory;
+//   P^T, dS^T                       on the accumulator fragments, masked
+//                                   only in the tiles that cross the
+//                                   diagonal or a sequence end;
+//   dV += P^T dO, dK += dS^T Q      wgmma with A from registers (the P^T
+//                                   and dS^T fragments rounded to bf16)
+//                                   and dO, Q read MN-major from the same
+//                                   tiles.
+// dK and dV accumulate in f32 registers.  The tensor cores take bf16, so P
+// and dS are rounded to bf16 before the dV and dK products, where the
+// Pallas kernel keeps them in f32; the plain version rounds the same way.
+//
+// dK/dV in f32 and dQ in both dtypes (flash_bwd_dkv_kernel,
+// flash_bwd_dq_kernel): FMA loops over tiles staged in shared memory as
+// f32 (an f32 input would run as TF32 on the tensor cores; dQ's move to
+// them is later work).
 //   dQ:    one block of 256 threads per (64-row q tile, q head, batch).  The
 //          TPU's sequential KV grid axis becomes a loop over 64-row K/V
 //          tiles inside the block, which stops at the diagonal when causal.
@@ -33,12 +58,12 @@
 //          x d/16 columns each per thread).  P and dS go to shared memory
 //          transposed, so both products read them along contiguous rows.
 // Every output tile belongs to exactly one block: no atomics, and a run
-// gives the same bits every time, as the TPU kernels' grids do.  Tensor
-// cores (mma / wgmma), TMA and a fused single-pass design are later work.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// gives the same bits every time, as the TPU kernels' grids do.
+#include "hopper.cuh"
+
 #include <math.h>
-#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -367,6 +392,232 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   }
 }
 
+
+// ------------------------------------------- dK/dV in bf16: wgmma and TMA
+constexpr int kTcBN = 128;             // kv rows a block: two warpgroups
+constexpr int kTcBM = 64;              // q rows a stage
+constexpr int kTcStages = 2;
+constexpr int kTcThreads = 384;        // two consumer warpgroups + a producer
+constexpr int kTcArrivals = 8;         // consumer warps releasing a stage
+constexpr int kTcLoaders = 32;         // producer lanes filling a stage
+
+template <int D>
+struct DkvSmem {
+  static constexpr int KV = kTcBN * D * 2;
+  static constexpr int QT = kTcBM * D * 2;
+  static constexpr int ROW = kTcBM * 4;             // an lse / delta tile
+  static constexpr int STAGE = 2 * QT + 1024;       // Q, dO, lse, delta
+  static constexpr int K = 0;
+  static constexpr int V = KV;
+  __host__ __device__ static constexpr int Q(int s) {
+    return 2 * KV + s * STAGE;
+  }
+  __host__ __device__ static constexpr int DO(int s) {
+    return Q(s) + QT;
+  }
+  __host__ __device__ static constexpr int LSE(int s) {
+    return DO(s) + QT;
+  }
+  __host__ __device__ static constexpr int DELTA(int s) {
+    return LSE(s) + 512;
+  }
+  static constexpr int BARS = 2 * KV + kTcStages * STAGE;
+  // Barriers (kv_full, full[], empty[]) and the alignment slack.
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * kTcStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int sq, int skv, int hq, int hkv,
+    int causal, float scale, float scale_log2) {
+  using namespace hopper;
+  using L = DkvSmem<D>;
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* smem = align1024(tc_smem);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kTcStages;
+
+  const int k0 = blockIdx.z * kTcBN;   // kv tile 0 sees the most q tiles
+  const int hk = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int n_rep = hq / hkv;
+  // Causal: q tiles wholly above this kv tile's first key see none of it.
+  const int q_begin = causal ? (k0 / kTcBM) * kTcBM : 0;
+  const int n_qt = q_begin < sq ? (sq - q_begin + kTcBM - 1) / kTcBM : 0;
+  const int n_it = n_rep * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full[s], kTcLoaders);
+      mbar_init(&empty[s], kTcArrivals);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // The producer: warp 8.  Lane 0 issues the TMA loads of the Q and dO
+    // tiles; the warp copies the lse and delta rows itself (a row of a
+    // ragged length starts off 16-byte alignment, where a 1-D TMA load
+    // faulted), then every lane arrives.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * L::KV);
+        tma_tile<D, kTcBN>(smem + L::K, &kmap, kv_full, hk, k0, bi);
+        tma_tile<D, kTcBN>(smem + L::V, &vmap, kv_full, hk, k0, bi);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kTcStages;
+        const int hi = hk * n_rep + it / n_qt;
+        const int q0 = q_begin + (it % n_qt) * kTcBM;
+        if (it >= kTcStages) mbar_wait(&empty[s], (it / kTcStages - 1) & 1);
+        if (lane == 0) {
+          mbar_expect(&full[s], 2 * L::QT);
+          tma_tile<D, kTcBM>(smem + L::Q(s), &qmap, &full[s], hi, q0, bi);
+          tma_tile<D, kTcBM>(smem + L::DO(s), &domap, &full[s], hi, q0, bi);
+        }
+        const int64_t row = ((int64_t)bi * hq + hi) * sq;
+        float* lse_s = reinterpret_cast<float*>(smem + L::LSE(s));
+        float* delta_s = reinterpret_cast<float*>(smem + L::DELTA(s));
+        for (int c = lane; c < kTcBM; c += 32) {
+          const bool in = q0 + c < sq;
+          lse_s[c] = in ? lse[row + q0 + c] : 0.f;
+          delta_s[c] = in ? delta[row + q0 + c] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+
+    // Consumer warpgroup wg: kv rows kv0 + r and + 8 of its accumulator
+    // layout, r = 16 warp + lane / 4; q columns 8 j + col0 (+ 1) of a tile.
+    const int lane = threadIdx.x % 32;
+    const int kvw = k0 + wg * 64;      // this warpgroup's first kv row
+    const int kv0 = kvw + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    const uint8_t* ks = smem + L::K + wg * 64 * Cols<D>::RB;
+    const uint8_t* vs = smem + L::V + wg * 64 * Cols<D>::RB;
+
+    float dkacc[D / 2], dvacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      dkacc[i] = 0.f;
+      dvacc[i] = 0.f;
+    }
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kTcStages;
+      const int q0 = q_begin + (it % n_qt) * kTcBM;
+      mbar_wait(&full[s], (it / kTcStages) & 1);
+      const uint8_t* qs = smem + L::Q(s);
+      const uint8_t* dos = smem + L::DO(s);
+      const float* lse_s = reinterpret_cast<const float*>(smem + L::LSE(s));
+      const float* delta_s =
+          reinterpret_cast<const float*>(smem + L::DELTA(s));
+
+      float st[kTcBM / 2], dpt[kTcBM / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Mma<kTcBM, 0, 0>::ss(st, desc_k<D, kTcBN>(ks, kk),
+                             desc_k<D, kTcBM>(qs, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Mma<kTcBM, 0, 0>::ss(dpt, desc_k<D, kTcBN>(vs, kk),
+                             desc_k<D, kTcBM>(dos, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();                   // S^T is in; dP^T may still run
+      fence_regs(st);
+
+      // P^T = exp2(S^T scale log2e - lse log2e), zero where masked.
+      const bool edge = q0 + kTcBM > sq || kvw + 64 > skv ||
+                        (causal && q0 < kvw + 63);
+#pragma unroll
+      for (int j = 0; j < kTcBM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + col0 + e;
+          const float l2 = lse_s[c] * kLog2e;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float p = exp2f(fmaf(st[4 * j + 2 * h + e], scale_log2, -l2));
+            if (edge) {
+              const int q = q0 + c, kv = kv0 + 8 * h;
+              if (q >= sq || kv >= skv || (causal && q < kv)) p = 0.f;
+            }
+            st[4 * j + 2 * h + e] = p;
+          }
+        }
+      wgmma_wait<0>();
+      fence_regs(dpt);
+      // dS^T = P^T (dP^T - delta) scale.
+#pragma unroll
+      for (int j = 0; j < kTcBM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dl = delta_s[8 * j + col0 + e];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int x = 4 * j + 2 * h + e;
+            dpt[x] = st[x] * (dpt[x] - dl) * scale;
+          }
+        }
+
+      // The A fragments of the q-reduction: k16 step t takes the column
+      // groups 2t and 2t + 1; P and dS round to bf16 here.
+      uint32_t pa[kTcBM / 16][4], dsa[kTcBM / 16][4];
+#pragma unroll
+      for (int t = 0; t < kTcBM / 16; ++t)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int x = 4 * (2 * t + r / 2) + 2 * (r % 2);
+          pa[t][r] = pack_bf16(st[x], st[x + 1]);
+          dsa[t][r] = pack_bf16(dpt[x], dpt[x + 1]);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < kTcBM / 16; ++t)
+        Mma<D, 0, 1>::rs(dvacc, pa[t], desc_mn<D, kTcBM>(dos, t), 1);
+#pragma unroll
+      for (int t = 0; t < kTcBM / 16; ++t)
+        Mma<D, 0, 1>::rs(dkacc, dsa[t], desc_mn<D, kTcBM>(qs, t), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dvacc);
+      fence_regs(dkacc);
+      if (lane == 0) mbar_arrive(&empty[s]);   // this warp is done with s
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = kv0 + 8 * h;
+      if (row >= skv) continue;
+      const int64_t off = (((int64_t)bi * skv + row) * hkv + hk) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int x = 4 * j + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + col0) =
+            __floats2bfloat162_rn(dkacc[x], dkacc[x + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + col0) =
+            __floats2bfloat162_rn(dvacc[x], dvacc[x + 1]);
+      }
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -404,12 +655,45 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t st) {
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!hopper::map_bshd<D>(&qmap, a.q, a.b, a.sq, a.hq, kTcBM) ||
+      !hopper::map_bshd<D>(&domap, a.dout, a.b, a.sq, a.hq, kTcBM) ||
+      !hopper::map_bshd<D>(&kmap, a.k, a.b, a.skv, a.hkv, kTcBN) ||
+      !hopper::map_bshd<D>(&vmap, a.v, a.b, a.skv, a.hkv, kTcBN))
+    return cudaErrorInvalidValue;
+  constexpr int smem = DkvSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.hkv, a.b, (a.skv + kTcBN - 1) / kTcBN);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, kTcThreads, smem, st>>>(
+      qmap, kmap, vmap, domap, a.lse, a.delta, (__nv_bfloat16*)a.dk,
+      (__nv_bfloat16*)a.dv, a.sq, a.skv, a.hq, a.hkv, a.causal, a.scale,
+      a.scale * hopper::kLog2e);
+  return cudaGetLastError();
+}
+
+// dQ: the FMA kernel in both dtypes.  dK/dV: the FMA kernel in f32, the
+// wgmma kernel in bf16.
+template <bool DQ, typename T, int D>
+cudaError_t launch_one(const Args& a, cudaStream_t st) {
+  if constexpr (DQ)
+    return launch_dq<T, D>(a, st);
+  else if constexpr (std::is_same<T, float>::value)
+    return launch_dkv<T, D>(a, st);
+  else
+    return launch_dkv_wgmma<D>(a, st);
+}
+
 template <bool DQ, typename T>
 cudaError_t launch_d(const Args& a, int d, cudaStream_t st) {
   switch (d) {
-    case 32: return DQ ? launch_dq<T, 32>(a, st) : launch_dkv<T, 32>(a, st);
-    case 64: return DQ ? launch_dq<T, 64>(a, st) : launch_dkv<T, 64>(a, st);
-    case 128: return DQ ? launch_dq<T, 128>(a, st) : launch_dkv<T, 128>(a, st);
+    case 32: return launch_one<DQ, T, 32>(a, st);
+    case 64: return launch_one<DQ, T, 64>(a, st);
+    case 128: return launch_one<DQ, T, 128>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }

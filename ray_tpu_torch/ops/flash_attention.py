@@ -9,6 +9,12 @@ backward reads.  A CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain version.  The autograd Function is the same on both
 devices, so the CPU tests run its wiring.
 
+The forward and dK/dV each have two kernels, chosen by dtype in the C
+entry (`ROUTES`): bf16 runs on the tensor cores (wgmma, TMA), f32 keeps
+the FMA loops, since the tensor cores would round f32 to TF32.  dQ has
+one kernel, FMA loops in both dtypes.  `<wrapper>.launches` counts every
+launch, `<wrapper>.launches_by_route` each kernel's.
+
 The forward is registered as the custom op `ray_tpu_torch::flash_fwd`
 (`FLASH_FWD_OP`): a kernel launched through ctypes is invisible to
 PyTorch's dispatcher, and a selective-checkpoint policy
@@ -25,6 +31,8 @@ import torch
 from ray_tpu_torch import _kernels
 
 HEAD_DIMS = (32, 64, 128)
+# The kernel each dtype launches in the forward and dK/dV C entries.
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, o, lse; b, sq, skv, hq, hkv, d, causal; sm_scale; dtype; stream
 _ARGTYPES = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _P]
@@ -113,10 +121,12 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
              torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_route[ROUTES[q.dtype]] += 1
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_route = dict.fromkeys(ROUTES.values(), 0)
 
 
 # ----------------------------------------------------------------- backward
@@ -151,13 +161,15 @@ def _dq_plain(q, k, v, do, lse, delta, causal, sm_scale):
 
 
 def _dkv_plain(q, k, v, do, lse, delta, causal, sm_scale):
-    """Plain version of the dK/dV kernel: P and dS stay f32; each kv head
-    sums over its n_rep query heads."""
+    """Plain version of the dK/dV kernel: P and dS rounded to the value and
+    query dtypes before P^T dO and dS^T Q (the bf16 kernel's tensor cores
+    take bf16; a no-op in f32, where the Pallas kernel's f32 P and dS are
+    kept); each kv head sums over its n_rep query heads."""
     p, ds, _ = _probs(q, k, v, do, lse, delta, causal, sm_scale)
     b, skv, hkv, d = k.shape
     n_rep = q.shape[2] // hkv
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
     dk = dk.reshape(b, skv, hkv, n_rep, d).sum(3)
     dv = dv.reshape(b, skv, hkv, n_rep, d).sum(3)
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -237,10 +249,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
              *_bwd_scalars(q, k, causal, sm_scale))
     _kernels.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches_by_route[ROUTES[q.dtype]] += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_by_route = dict.fromkeys(ROUTES.values(), 0)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,

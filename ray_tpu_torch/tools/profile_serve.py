@@ -21,10 +21,14 @@ import numpy as np
 import torch
 
 PROMPTS = [312, 1000, 457, 803, 640, 999, 388, 725]
+# Kernel name substrings by group, the first match winning: each flash
+# group holds both dtype routes (the bf16 wgmma and the f32 FMA kernel),
+# ahead of "gemm" so a wgmma kernel never counts as a library GEMM.
 GROUPS = (("paged_decode", "paged_decode_kernel"),
-          ("flash_fwd", "flash_fwd_kernel"),
+          ("flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_kernel")),
           ("flash_bwd_dq", "flash_bwd_dq_kernel"),
-          ("flash_bwd_dkv", "flash_bwd_dkv_kernel"),
+          ("flash_bwd_dkv", ("flash_bwd_dkv_wgmma_kernel",
+                             "flash_bwd_dkv_kernel")),
           ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "gemv")))
 
 

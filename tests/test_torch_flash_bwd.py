@@ -99,3 +99,53 @@ def test_flash_bwd_wrappers_take_the_plain_versions_on_cpu():
         assert torch.equal(g, w)
     assert (fa.flash_attention_bwd_dq.launches,
             fa.flash_attention_bwd_dkv.launches) == n0
+
+
+def test_dkv_plain_rounds_p_and_ds_to_bf16():
+    """The bf16 dK/dV kernel feeds P and dS to the tensor cores in bf16, and
+    its plain version rounds them the same way before P^T dO and dS^T Q
+    (in f32 the cast is a no-op, so the test above still holds the plain
+    version to the Pallas kernels at 1e-5)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
+    q, k, v, do = (torch.from_numpy(a).to(bf)
+                   for a in _inputs(3, 1, 50, 4, 2, 32))
+    scale = 32 ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = fa.attention_delta(o, do)
+    dk, dv = fa._dkv_plain(q, k, v, do, lse, delta, True, scale)
+    assert dk.dtype == bf and dv.dtype == bf
+
+    p, ds, _ = fa._probs(q, k, v, do, lse, delta, True, scale)
+
+    def per_kv_head(x):            # [b, s, hq, d] -> sum over each group
+        return x.reshape(1, 50, 2, 2, 32).sum(3).to(bf)
+
+    def products(p, ds):
+        return (per_kv_head(torch.einsum("bhqk,bqhd->bkhd", ds, q.float())),
+                per_kv_head(torch.einsum("bhqk,bqhd->bkhd", p, do.float())))
+
+    want_dk, want_dv = products(p.to(bf).float(), ds.to(bf).float())
+    assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+    f32_dk, f32_dv = products(p, ds)          # without the cast
+    assert not torch.equal(dk, f32_dk) and not torch.equal(dv, f32_dv)
+
+
+def test_dtype_routes_and_cpu_counts():
+    """bf16 takes the tensor-core kernels and f32 the FMA kernels on the
+    card; CPU tensors launch neither, so no route count moves."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    assert fa.ROUTES == {torch.bfloat16: "wgmma", torch.float32: "fma"}
+    before = (dict(fa.flash_attention_fwd.launches_by_route),
+              dict(fa.flash_attention_bwd_dkv.launches_by_route))
+    assert set(before[0]) == set(before[1]) == {"wgmma", "fma"}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.from_numpy(a).to(dtype)
+                       for a in _inputs(4, 1, 20, 2, 1, 64))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                   fa.attention_delta(o, do))
+    assert (fa.flash_attention_fwd.launches_by_route,
+            fa.flash_attention_bwd_dkv.launches_by_route) == before
