@@ -14,7 +14,12 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  times and the bound.  The flash forward is timed at the
                  8B wave and the `bench-350m` layer, the flash backward
                  (dQ, dK/dV) at the `bench-350m` layer; the f32 routes
-                 (FMA kernels) at the `debug` training shapes.
+                 (FMA kernels) at the `debug` training shapes; the paged
+                 kernel at the 8B decode state, at a long context and at
+                 batch 32.
+                 Each backward case must launch dQ and dK/dV once each on
+                 its dtype's route, and every backward and paged case
+                 gives the same bits when run again.
   3. engine_small_f32 -- the whole engine at small depth (`debug`, f32) on
                  CUDA (kernels) and on the CPU (plain versions) from the
                  same parameters: a shared page-aligned prefix, a
@@ -35,22 +40,21 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  with remat flash_resid, nothing and off: losses, pre-clip
                  grad norms and final params agree; the forward kernel runs
                  n_layers times a step under flash_resid and twice that
-                 under nothing, the forward and dK/dV on their f32 (FMA)
-                 routes only.
+                 under nothing, the forward, dQ and dK/dV on their f32
+                 (FMA) routes only.
   6. train_350m -- `bench-350m` at full width and depth in bf16, weights
                  from seed 0, `default_optimizer(total_steps=1000)`, batch
                  8 x seq 2048 of seeded random tokens, remat flash_resid:
                  one warm-up step (lr 0: params unchanged), five timed
                  steps (loss, grad norm, step ms, tokens/s, MFU, peak
                  memory; the counters are zeroed just before and read just
-                 after: 24 launches a step of each flash kernel, the
-                 forward and dK/dV on their bf16 (wgmma) routes only), then
-                 one step under torch.profiler for the device time by
-                 kernel group, in which no FMA forward or dK/dV kernel may
-                 run.
+                 after: 24 launches a step of each flash kernel, all on
+                 their bf16 (wgmma) routes), then one step under
+                 torch.profiler for the device time by kernel group, in
+                 which no FMA flash kernel may run.
 
 The line before the last is {"kernels": [...]}, one entry per kernel
-(the forward and dK/dV: one per dtype route); the last line is
+(the forward, dQ and dK/dV: one per dtype route); the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -222,15 +226,29 @@ def flash_bwd_case(timer, name, b, s, hq, hkv, d, dtype, causal=True,
     do = torch.randn(b, s, hq, d, generator=g, device="cuda").to(dtype)
     o, lse = flash_attention_fwd(q, k, v, causal)
     delta = attention_delta(o, do)
+    n0 = flash_counts()
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
+    # Each wrapper launched once, on its dtype's route only.
+    ran = {n: c - n0[n] for n, c in flash_counts().items() if c != n0[n]}
+    route = "/wgmma" if dtype == torch.bfloat16 else "/fma"
+    if ran != {w + r: 1 for w in ("flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv")
+               for r in ("", route)}:
+        raise AssertionError(f"flash backward {name}: launches {ran}")
+    # The same bits on a second run: no atomics, one order of sums.
+    again = (flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),
+             *flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal))
+    if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+        raise AssertionError(f"flash backward {name}: a second run gave "
+                             "other bits")
     ref = flash_attention_bwd_reference(q.float(), k.float(), v.float(),
                                         o.float(), lse, do.float(), causal)
     got = dict(zip(("dq", "dk", "dv"), (dq, dk, dv)))
     want = dict(zip(("dq", "dk", "dv"), ref))
     row = {"case": name, "shape": [b, s, hq, hkv, d], "dtype": str(dtype),
-           "causal": causal,
+           "causal": causal, "launches": ran, "same_bits_on_rerun": True,
            "rel_err": {n: rel_err(got[n], want[n]) for n in got},
            "max_abs_err": {n: max_err(got[n], want[n]) for n in got},
            "tol_rel": BWD_TOL[dtype]}
@@ -301,7 +319,9 @@ def paged_case(timer, name, args, timed=False):
                                                    paged_decode_reference)
 
     dtype = args[0].dtype
+    n0 = paged_decode_attention.launches
     o = paged_decode_attention(*args)
+    again = paged_decode_attention(*args)
     torch.cuda.synchronize()
     ref = paged_decode_reference(*[a.float() if a.is_floating_point()
                                    else a for a in args])
@@ -309,9 +329,15 @@ def paged_case(timer, name, args, timed=False):
     B, kvh, rep, hd = args[0].shape
     row = {"case": name, "shape": [B, kvh, rep, hd, args[1].shape[2],
                                    args[5].shape[1], args[3].shape[2]],
-           "dtype": str(dtype), "max_abs_err": err, "tol": TOL[dtype]}
-    if err > TOL[dtype] or not torch.isfinite(o.float()).all():
+           "tail_start": args[7].tolist(), "pos": args[6].tolist(),
+           "dtype": str(dtype), "max_abs_err": err, "tol": TOL[dtype],
+           "same_bits_on_rerun": bool(torch.equal(o, again))}
+    if err > TOL[dtype] or not torch.isfinite(o.float()).all() \
+            or paged_decode_attention.launches - n0 != 2:
         raise AssertionError(f"paged_decode_attention {name}: {row}")
+    if not row["same_bits_on_rerun"]:
+        raise AssertionError(f"paged_decode_attention {name}: a second run "
+                             "gave other bits")
     if timed:
         row["ms"] = timer.ms(lambda: paged_decode_attention(*args))
         row["plain_ms"] = timer.ms(lambda: paged_decode_reference(*args),
@@ -372,6 +398,25 @@ def phase_kernels(timer):
             table=torch.tensor([[1, 2], [0, 0], [3, 0]], dtype=torch.int32))),
         paged_case(timer, "f32_hd128_rep8", paged_inputs(
             2, 1, 8, 128, 16, 3, 8, 9, f32, [17, 40], [20, 40])),
+        # A long context at the 8B heads: keys in every split of each
+        # cluster, each split's share looping.
+        paged_case(timer, "8b_long_context",
+                   paged_inputs(2, 8, 4, 128, 512, 16, 8, 26, bf,
+                                [7990, 4100], [7993, 4103]),
+                   timed=True),
+        # Batch 32 at 1000 tokens each: against the 8B state's time, how
+        # much of a call is fixed cost and how much moves bytes.
+        paged_case(timer, "8b_batch32_decode",
+                   paged_inputs(32, 8, 4, 128, 512, 16, 8, 65, bf,
+                                [1000] * 32, [1003] * 32),
+                   timed=True),
+        # Fewer admitted keys than splits (4 and 3): most splits empty.
+        paged_case(timer, "bf16_fewer_keys_than_splits", paged_inputs(
+            3, 2, 4, 128, 16, 4, 4, 8, bf, [3, 0, 40], [3, 2, 41])),
+        # 128 keys in 8 splits of 16 on pages of 16: every split ends on a
+        # page boundary (slot 1: the last split is the tail).
+        paged_case(timer, "f32_splits_on_page_boundaries", paged_inputs(
+            2, 2, 2, 64, 16, 8, 8, 17, f32, [128, 120], [127, 127])),
     ]
     flash_bwd = [
         # One bench-350m layer call: b 8 x s 2048, 8 q / 4 kv heads.
@@ -393,7 +438,8 @@ def phase_kernels(timer):
     ]
     emit({"phase": "kernels", "flash_attention_fwd": flash,
           "paged_decode_attention": paged, "flash_attention_bwd": flash_bwd})
-    return {"fwd": {r["case"]: r for r in flash}, "paged": paged[0],
+    return {"fwd": {r["case"]: r for r in flash},
+            "paged": {r["case"]: r for r in paged},
             "bwd": {r["case"]: r for r in flash_bwd}}
 
 
@@ -670,6 +716,8 @@ def phase_train_small():
         want = {"flash_attention_fwd": fwd, "flash_attention_fwd/fma": fwd,
                 "flash_attention_fwd/wgmma": 0,
                 "flash_attention_bwd_dq": base.n_layers,
+                "flash_attention_bwd_dq/fma": base.n_layers,
+                "flash_attention_bwd_dq/wgmma": 0,
                 "flash_attention_bwd_dkv": base.n_layers,
                 "flash_attention_bwd_dkv/fma": base.n_layers,
                 "flash_attention_bwd_dkv/wgmma": 0}
@@ -756,7 +804,9 @@ def phase_train_350m(card):
                         if kernel_group(n) == "other"),
                        key=lambda t: -t[1])[:10]
     fma_traced = {n[:100]: c for n, (_, c) in kernels.items()
-                  if "flash_fwd_kernel" in n or "flash_bwd_dkv_kernel" in n}
+                  if any(k in n for k in ("flash_fwd_kernel",
+                                          "flash_bwd_dq_kernel",
+                                          "flash_bwd_dkv_kernel"))}
 
     mean_ms = sum(step_ms) / len(step_ms)
     tokens_per_s = batch_size * seq / (mean_ms / 1e3)
@@ -864,22 +914,26 @@ def main() -> int:
                 "fused_bound_ms": row["fused_bound_ms"]})
         return e
 
-    fwd, bwd = rows["fwd"], rows["bwd"]
+    fwd, bwd, paged = rows["fwd"], rows["bwd"], rows["paged"]
     fa_py = "ray_tpu/ops/flash_attention.py"
     kernels = [
-        entry("paged_decode_attention", "paged_decode_kernel",
+        entry("paged_decode_attention", "paged_decode_split_kernel",
               "paged_decode.cu", "ray_tpu/ops/paged_attention.py:53",
-              serve["paged_decode_attention"], rows["paged"]),
+              serve["paged_decode_attention"], paged["8b_decode_window"]),
         entry("flash_attention_fwd", "flash_fwd_wgmma_kernel",
               "flash_fwd.cu", f"{fa_py}:38",
               serve["flash_attention_fwd/wgmma"], fwd["8b_wave_bucket1024"]),
         entry("flash_attention_fwd", "flash_fwd_kernel", "flash_fwd.cu",
               f"{fa_py}:38", small["flash_attention_fwd/fma"],
               fwd["f32_debug_train"]),
+        entry("flash_attention_bwd_dq", "flash_bwd_dq_wgmma_kernel",
+              "flash_bwd.cu", f"{fa_py}:142",
+              train["flash_attention_bwd_dq/wgmma"],
+              bwd["350m_train_layer"], "dq", ("dq",)),
         entry("flash_attention_bwd_dq", "flash_bwd_dq_kernel",
               "flash_bwd.cu", f"{fa_py}:142",
-              train["flash_attention_bwd_dq"], bwd["350m_train_layer"],
-              "dq", ("dq",)),
+              train_small["flash_attention_bwd_dq/fma"],
+              bwd["f32_debug_train"], "dq", ("dq",)),
         entry("flash_attention_bwd_dkv", "flash_bwd_dkv_wgmma_kernel",
               "flash_bwd.cu", f"{fa_py}:192",
               train["flash_attention_bwd_dkv/wgmma"],
@@ -889,8 +943,12 @@ def main() -> int:
               train_small["flash_attention_bwd_dkv/fma"],
               bwd["f32_debug_train"], "dkv", ("dk", "dv")),
     ]
-    # Launches on the other main path of each kernel, and the forward's
-    # time at the training layer's shapes.
+    # Launches on the other main path of each kernel, the paged kernel's
+    # time at a long context, and the forward's at the training layer.
+    long = paged["8b_long_context"]
+    kernels[0].update({"ms_long_context": long["ms"],
+                       "bound_ms_long_context": long["bound_ms"],
+                       "plain_ms_long_context": long["plain_ms"]})
     kernels[1]["launches_train_350m"] = train["flash_attention_fwd/wgmma"]
     kernels[1]["ms_350m_train_layer"] = fwd["350m_train_layer"]["ms"]
     kernels[1]["bound_ms_350m_train_layer"] = \
@@ -899,8 +957,6 @@ def main() -> int:
         fwd["350m_train_layer"]["library_ms"]
     kernels[2]["launches_train_small_f32"] = \
         train_small["flash_attention_fwd/fma"]
-    kernels[3]["launches_train_small_f32"] = \
-        train_small["flash_attention_bwd_dq"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

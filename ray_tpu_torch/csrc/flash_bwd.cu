@@ -43,10 +43,27 @@
 // and dS are rounded to bf16 before the dV and dK products, where the
 // Pallas kernel keeps them in f32; the plain version rounds the same way.
 //
-// dK/dV in f32 and dQ in both dtypes (flash_bwd_dkv_kernel,
-// flash_bwd_dq_kernel): FMA loops over tiles staged in shared memory as
-// f32 (an f32 input would run as TF32 on the tensor cores; dQ's move to
-// them is later work).
+// dQ in bf16 (flash_bwd_dq_wgmma_kernel): the same building blocks with the
+// roles of Q and K/V swapped.  One block per (128-row q tile, q head,
+// batch), the heaviest causal tiles (the last) launched first.  Q and dO
+// stay resident (one TMA each on their own barrier); the producer warp
+// streams 64-row K and V tiles through a ring of two stages, up to the
+// diagonal when causal.  Each consumer warpgroup owns 64 q rows, reads its
+// rows' lse and delta once from device memory, and per K/V tile runs
+//   S = Q K^T and dP = dO V^T   wgmma m64n64k16, both operands K-major;
+//                               the exp of S runs while dP is in flight;
+//   P, dS                       on the accumulator fragments, masked only
+//                               in the tiles that cross the diagonal or a
+//                               sequence end; dS rounded to bf16 (the
+//                               Pallas kernel's own cast to K's dtype);
+//   dQ += dS K                  wgmma with A from registers and K read
+//                               MN-major from the same tile.
+// A warpgroup skips the causal tiles wholly past its last row.  dQ stays
+// in f32 registers and is written once: no atomics, no scratch.
+//
+// dK/dV and dQ in f32 (flash_bwd_dkv_kernel, flash_bwd_dq_kernel): FMA
+// loops over tiles staged in shared memory as f32 (an f32 input would run
+// as TF32 on the tensor cores).
 //   dQ:    one block of 256 threads per (64-row q tile, q head, batch).  The
 //          TPU's sequential KV grid axis becomes a loop over 64-row K/V
 //          tiles inside the block, which stops at the diagonal when causal.
@@ -63,65 +80,25 @@
 
 #include <math.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int BM = 64;               // q rows per tile
 constexpr int BN = 64;               // kv rows per tile
 constexpr int kThreads = 256;
 
-template <typename T> struct VecN;
-template <> struct VecN<float> { static constexpr int N = 4; };
-template <> struct VecN<__nv_bfloat16> { static constexpr int N = 8; };
-
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 // Stage 64 rows (from row0, stride `rs` elements) of a [*, D] slice into
-// shared memory as f32 with leading dimension LD; rows past `n` are zeros.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void stage(float* dst, const T* src, int row0,
+// shared memory with leading dimension LD; rows past `n` are zeros.
+template <int D, int LD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int row0,
                                       int n, int64_t rs) {
-  constexpr int VEC = VecN<T>::N;
-  constexpr int PER_ROW = D / VEC;
+  constexpr int PER_ROW = D / 4;
   for (int i = threadIdx.x; i < 64 * PER_ROW; i += kThreads) {
     const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    float f[VEC];
-    if (row0 + r < n) {
-      load_vec(src + (int64_t)(row0 + r) * rs + c, f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; e += 4)
-      *reinterpret_cast<float4*>(dst + r * LD + c + e) =
-          make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+    const int c = (i % PER_ROW) * 4;
+    *reinterpret_cast<float4*>(dst + r * LD + c) =
+        row0 + r < n ? *reinterpret_cast<const float4*>(
+                           src + (int64_t)(row0 + r) * rs + c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -213,12 +190,13 @@ constexpr int dkv_smem_bytes() {
   return (4 * 64 * (D + 4) + 2 * BN * (BM + 4) + 2 * BM) * 4;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int sq, int skv,
-    int hq, int hkv, int causal, float scale) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int sq, int skv, int hq, int hkv, int causal,
+    float scale) {
   constexpr int LD = D + 4;
   constexpr int LDP = BN + 4;
   constexpr int CPT = D / 16;
@@ -227,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   float* dOs = Qs + BM * LD;
   float* Ks = dOs + BM * LD;
   float* Vs = Ks + BN * LD;
-  float* dSs = Vs + BN * LD;         // [BM, LDP]: dS rounded to K's dtype
+  float* dSs = Vs + BN * LD;         // [BM, LDP]
   float* lse_s = dSs + BM * LDP;
   float* delta_s = lse_s + BM;
 
@@ -239,14 +217,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int tx = threadIdx.x % 16;
   const int64_t qrs = (int64_t)hq * D;
   const int64_t krs = (int64_t)hkv * D;
-  const T* qb = q + ((int64_t)bi * sq * hq + hi) * D;
-  const T* dob = dout + ((int64_t)bi * sq * hq + hi) * D;
-  const T* kb = k + ((int64_t)bi * skv * hkv + hk) * D;
-  const T* vb = v + ((int64_t)bi * skv * hkv + hk) * D;
+  const float* qb = q + ((int64_t)bi * sq * hq + hi) * D;
+  const float* dob = dout + ((int64_t)bi * sq * hq + hi) * D;
+  const float* kb = k + ((int64_t)bi * skv * hkv + hk) * D;
+  const float* vb = v + ((int64_t)bi * skv * hkv + hk) * D;
   const int64_t row_off = ((int64_t)bi * hq + hi) * sq;
 
-  stage<T, D, LD>(Qs, qb, q0, sq, qrs);
-  stage<T, D, LD>(dOs, dob, q0, sq, qrs);
+  stage<D, LD>(Qs, qb, q0, sq, qrs);
+  stage<D, LD>(dOs, dob, q0, sq, qrs);
   stage_row(lse_s, lse + row_off, q0, sq);
   stage_row(delta_s, delta + row_off, q0, sq);
 
@@ -259,8 +237,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int kv_end = causal ? min(skv, q0 + BM) : skv;
   for (int k0 = 0; k0 < kv_end; k0 += BN) {
     __syncthreads();                 // previous tile's readers are done
-    stage<T, D, LD>(Ks, kb, k0, skv, krs);
-    stage<T, D, LD>(Vs, vb, k0, skv, krs);
+    stage<D, LD>(Ks, kb, k0, skv, krs);
+    stage<D, LD>(Vs, vb, k0, skv, krs);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -275,7 +253,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
         float ds = 0.f;
         if (row < sq && col < skv && !(causal && col > row)) {
           const float p = expf(s[i][j] * scale - lse_s[r]);
-          ds = round_to(p * (dp[i][j] - delta_s[r]) * scale, k);
+          ds = p * (dp[i][j] - delta_s[r]) * scale;
         }
         dSs[r * LDP + tx + 16 * j] = ds;
       }
@@ -288,18 +266,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
-    T* drow = dq + ((int64_t)bi * sq + row) * qrs + (int64_t)hi * D;
+    float* drow = dq + ((int64_t)bi * sq + row) * qrs + (int64_t)hi * D;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) store(drow + tx + 16 * c, acc[i][c]);
+    for (int c = 0; c < CPT; ++c) drow[tx + 16 * c] = acc[i][c];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int sq, int skv, int hq, int hkv, int causal, float scale) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int sq, int skv, int hq,
+    int hkv, int causal, float scale) {
   constexpr int LD = D + 4;
   constexpr int LDP = BM + 4;
   constexpr int CPT = D / 16;
@@ -323,8 +302,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int64_t krs = (int64_t)hkv * D;
   const int64_t kv_off = ((int64_t)bi * skv * hkv + hk) * D;
 
-  stage<T, D, LD>(Ks, k + kv_off, k0, skv, krs);
-  stage<T, D, LD>(Vs, v + kv_off, k0, skv, krs);
+  stage<D, LD>(Ks, k + kv_off, k0, skv, krs);
+  stage<D, LD>(Vs, v + kv_off, k0, skv, krs);
 
   float dk_acc[4][CPT], dv_acc[4][CPT];
 #pragma unroll
@@ -336,13 +315,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int q_begin = causal ? (k0 / BM) * BM : 0;
   for (int rep = 0; rep < n_rep; ++rep) {
     const int hi = hk * n_rep + rep;
-    const T* qb = q + ((int64_t)bi * sq * hq + hi) * D;
-    const T* dob = dout + ((int64_t)bi * sq * hq + hi) * D;
+    const float* qb = q + ((int64_t)bi * sq * hq + hi) * D;
+    const float* dob = dout + ((int64_t)bi * sq * hq + hi) * D;
     const int64_t row_off = ((int64_t)bi * hq + hi) * sq;
     for (int q0 = q_begin; q0 < sq; q0 += BM) {
       __syncthreads();               // previous tile's readers are done
-      stage<T, D, LD>(Qs, qb, q0, sq, qrs);
-      stage<T, D, LD>(dOs, dob, q0, sq, qrs);
+      stage<D, LD>(Qs, qb, q0, sq, qrs);
+      stage<D, LD>(dOs, dob, q0, sq, qrs);
       stage_row(lse_s, lse + row_off, q0, sq);
       stage_row(delta_s, delta + row_off, q0, sq);
       __syncthreads();
@@ -386,8 +365,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const int64_t off = ((int64_t)bi * skv + row) * krs + (int64_t)hk * D;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
-      store(dk + off + tx + 16 * c, dk_acc[i][c]);
-      store(dv + off + tx + 16 * c, dv_acc[i][c]);
+      dk[off + tx + 16 * c] = dk_acc[i][c];
+      dv[off + tx + 16 * c] = dv_acc[i][c];
     }
   }
 }
@@ -618,6 +597,185 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_dkv_wgmma_kernel(
   }
 }
 
+// --------------------------------------------- dQ in bf16: wgmma and TMA
+constexpr int kDqBM = 128;             // q rows a block: two warpgroups
+constexpr int kDqBN = 64;              // K/V rows a stage
+constexpr int kDqStages = 2;
+
+template <int D>
+struct DqSmem {
+  static constexpr int QT = kDqBM * D * 2;
+  static constexpr int KV = kDqBN * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int DO = QT;
+  __host__ __device__ static constexpr int K(int s) {
+    return 2 * QT + s * 2 * KV;
+  }
+  __host__ __device__ static constexpr int V(int s) { return K(s) + KV; }
+  static constexpr int BARS = 2 * QT + kDqStages * 2 * KV;
+  // Barriers (q_full, full[], empty[]) and the alignment slack.
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * kDqStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int sq,
+    int skv, int hq, int hkv, int causal, float scale, float scale_log2) {
+  using namespace hopper;
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* smem = align1024(tc_smem);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kDqStages;
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kDqBM;  // heaviest first
+  const int hi = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int hk = hi / (hq / hkv);
+  const int kv_end = causal ? min(skv, q0 + kDqBM) : skv;
+  const int n_kv = (kv_end + kDqBN - 1) / kDqBN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kTcArrivals);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // The producer: one thread of warp 8 issues every TMA load.
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * L::QT);
+      tma_tile<D, kDqBM>(smem + L::Q, &qmap, q_full, hi, q0, bi);
+      tma_tile<D, kDqBM>(smem + L::DO, &domap, q_full, hi, q0, bi);
+      for (int i = 0; i < n_kv; ++i) {
+        const int s = i % kDqStages;
+        if (i >= kDqStages) mbar_wait(&empty[s], (i / kDqStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * L::KV);
+        tma_tile<D, kDqBN>(smem + L::K(s), &kmap, &full[s], hk, i * kDqBN,
+                           bi);
+        tma_tile<D, kDqBN>(smem + L::V(s), &vmap, &full[s], hk, i * kDqBN,
+                           bi);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  // Consumer warpgroup wg: q rows row0 and row0 + 8 of its accumulator
+  // layout, r = 16 warp + lane / 4; kv columns 8 j + col0 (+ 1) of a tile.
+  const int lane = threadIdx.x % 32;
+  const int qw = q0 + wg * 64;         // this warpgroup's first q row
+  const int row0 = qw + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const uint8_t* qs = smem + L::Q + wg * 64 * Cols<D>::RB;
+  const uint8_t* dos = smem + L::DO + wg * 64 * Cols<D>::RB;
+
+  // lse (in log2 units) and delta of this thread's two rows; 0 past sq.
+  float l2[2], dl[2];
+  const int64_t row_off = ((int64_t)bi * hq + hi) * sq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    l2[h] = row < sq ? lse[row_off + row] * kLog2e : 0.f;
+    dl[h] = row < sq ? delta[row_off + row] : 0.f;
+  }
+
+  float dqacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
+
+  // Causal: keys past this warpgroup's last row add nothing.
+  const int kv_seen = causal ? min(kv_end, qw + 64) : kv_end;
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_kv; ++i) {
+    const int s = i % kDqStages;
+    const int k0 = i * kDqBN;
+    mbar_wait(&full[s], (i / kDqStages) & 1);
+    if (k0 < kv_seen) {
+      const uint8_t* ks = smem + L::K(s);
+      const uint8_t* vs = smem + L::V(s);
+      float sacc[kDqBN / 2], dpacc[kDqBN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Mma<kDqBN, 0, 0>::ss(sacc, desc_k<D, kDqBM>(qs, kk),
+                             desc_k<D, kDqBN>(ks, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Mma<kDqBN, 0, 0>::ss(dpacc, desc_k<D, kDqBM>(dos, kk),
+                             desc_k<D, kDqBN>(vs, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();                   // S is in; dP may still run
+      fence_regs(sacc);
+
+      // P = exp2(S scale log2e - lse log2e), zero where masked.
+      const bool edge = k0 + kDqBN > skv || qw + 64 > sq ||
+                        (causal && k0 + kDqBN - 1 > qw);
+#pragma unroll
+      for (int j = 0; j < kDqBN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * h + e;
+            float p = exp2f(fmaf(sacc[x], scale_log2, -l2[h]));
+            if (edge) {
+              const int q = row0 + 8 * h, kv = k0 + 8 * j + col0 + e;
+              if (q >= sq || kv >= skv || (causal && kv > q)) p = 0.f;
+            }
+            sacc[x] = p;
+          }
+      wgmma_wait<0>();
+      fence_regs(dpacc);
+
+      // dS = P (dP - delta) scale, rounded to bf16 into the A fragments of
+      // dS K: the k16 step t takes the column groups 2t and 2t + 1.
+      uint32_t dsa[kDqBN / 16][4];
+#pragma unroll
+      for (int t = 0; t < kDqBN / 16; ++t)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int x = 4 * (2 * t + r / 2) + 2 * (r % 2);
+          const float d = dl[r % 2];
+          dsa[t][r] = pack_bf16(sacc[x] * (dpacc[x] - d) * scale,
+                                sacc[x + 1] * (dpacc[x + 1] - d) * scale);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < kDqBN / 16; ++t)
+        Mma<D, 0, 1>::rs(dqacc, dsa[t], desc_mn<D, kDqBN>(ks, t), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqacc);
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);   // this warp is done with s
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= sq) continue;
+    __nv_bfloat16* drow = dq + (((int64_t)bi * sq + row) * hq + hi) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j + col0) =
+          __floats2bfloat162_rn(dqacc[4 * j + 2 * h],
+                                dqacc[4 * j + 2 * h + 1]);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -626,32 +784,33 @@ struct Args {
   float scale;
 };
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const Args& a, cudaStream_t st) {
   constexpr int smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + BM - 1) / BM, a.hq, a.b);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, st>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
-      a.delta, (T*)a.dq, a.sq, a.skv, a.hq, a.hkv, a.causal, a.scale);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, st>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.dout, a.lse, a.delta, (float*)a.dq, a.sq, a.skv, a.hq,
+      a.hkv, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const Args& a, cudaStream_t st) {
   constexpr int smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.skv + BN - 1) / BN, a.hkv, a.b);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, st>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
-      a.delta, (T*)a.dk, (T*)a.dv, a.sq, a.skv, a.hq, a.hkv, a.causal,
-      a.scale);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, st>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.dout, a.lse, a.delta, (float*)a.dk, (float*)a.dv, a.sq,
+      a.skv, a.hq, a.hkv, a.causal, a.scale);
   return cudaGetLastError();
 }
 
@@ -676,26 +835,34 @@ cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// dQ: the FMA kernel in both dtypes.  dK/dV: the FMA kernel in f32, the
-// wgmma kernel in bf16.
-template <bool DQ, typename T, int D>
-cudaError_t launch_one(const Args& a, cudaStream_t st) {
-  if constexpr (DQ)
-    return launch_dq<T, D>(a, st);
-  else if constexpr (std::is_same<T, float>::value)
-    return launch_dkv<T, D>(a, st);
-  else
-    return launch_dkv_wgmma<D>(a, st);
+template <int D>
+cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t st) {
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!hopper::map_bshd<D>(&qmap, a.q, a.b, a.sq, a.hq, kDqBM) ||
+      !hopper::map_bshd<D>(&domap, a.dout, a.b, a.sq, a.hq, kDqBM) ||
+      !hopper::map_bshd<D>(&kmap, a.k, a.b, a.skv, a.hkv, kDqBN) ||
+      !hopper::map_bshd<D>(&vmap, a.v, a.b, a.skv, a.hkv, kDqBN))
+    return cudaErrorInvalidValue;
+  constexpr int smem = DqSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.hq, a.b, (a.sq + kDqBM - 1) / kDqBM);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, kTcThreads, smem, st>>>(
+      qmap, kmap, vmap, domap, a.lse, a.delta, (__nv_bfloat16*)a.dq, a.sq,
+      a.skv, a.hq, a.hkv, a.causal, a.scale, a.scale * hopper::kLog2e);
+  return cudaGetLastError();
 }
 
-template <bool DQ, typename T>
-cudaError_t launch_d(const Args& a, int d, cudaStream_t st) {
-  switch (d) {
-    case 32: return launch_one<DQ, T, 32>(a, st);
-    case 64: return launch_one<DQ, T, 64>(a, st);
-    case 128: return launch_one<DQ, T, 128>(a, st);
-    default: return cudaErrorInvalidValue;
-  }
+// dtype 0 (float32) takes the FMA kernels, 1 (bfloat16) the wgmma kernels,
+// for dQ and dK/dV alike.
+template <bool DQ, int D>
+cudaError_t launch_one(const Args& a, int dtype, cudaStream_t st) {
+  if constexpr (DQ)
+    return dtype == 0 ? launch_dq<D>(a, st) : launch_dq_wgmma<D>(a, st);
+  else
+    return dtype == 0 ? launch_dkv<D>(a, st) : launch_dkv_wgmma<D>(a, st);
 }
 
 template <bool DQ>
@@ -703,9 +870,13 @@ int launch(const Args& a, int d, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.b <= 0 || a.sq <= 0 || a.skv <= 0 || a.hkv <= 0 || a.hq % a.hkv != 0)
     return cudaErrorInvalidValue;
-  if (dtype == 0) return launch_d<DQ, float>(a, d, st);
-  if (dtype == 1) return launch_d<DQ, __nv_bfloat16>(a, d, st);
-  return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  switch (d) {
+    case 32: return launch_one<DQ, 32>(a, dtype, st);
+    case 64: return launch_one<DQ, 64>(a, dtype, st);
+    case 128: return launch_one<DQ, 128>(a, dtype, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

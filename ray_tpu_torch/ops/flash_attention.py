@@ -9,11 +9,11 @@ backward reads.  A CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain version.  The autograd Function is the same on both
 devices, so the CPU tests run its wiring.
 
-The forward and dK/dV each have two kernels, chosen by dtype in the C
-entry (`ROUTES`): bf16 runs on the tensor cores (wgmma, TMA), f32 keeps
-the FMA loops, since the tensor cores would round f32 to TF32.  dQ has
-one kernel, FMA loops in both dtypes.  `<wrapper>.launches` counts every
-launch, `<wrapper>.launches_by_route` each kernel's.
+The forward, dQ and dK/dV each have two kernels, chosen by dtype in the
+C entry (`ROUTES`): bf16 runs on the tensor cores (wgmma, TMA), f32 keeps
+the FMA loops, since the tensor cores would round f32 to TF32.
+`<wrapper>.launches` counts every launch, `<wrapper>.launches_by_route`
+each kernel's.
 
 The forward is registered as the custom op `ray_tpu_torch::flash_fwd`
 (`FLASH_FWD_OP`): a kernel launched through ctypes is invisible to
@@ -31,7 +31,7 @@ import torch
 from ray_tpu_torch import _kernels
 
 HEAD_DIMS = (32, 64, 128)
-# The kernel each dtype launches in the forward and dK/dV C entries.
+# The kernel each dtype launches in the forward, dQ and dK/dV C entries.
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, o, lse; b, sq, skv, hq, hkv, d, causal; sm_scale; dtype; stream
@@ -213,8 +213,8 @@ def _bwd_scalars(q, k, causal, sm_scale):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                            sm_scale: float | None = None):
     """dQ from the CUDA kernel for CUDA tensors, from the plain version for
-    CPU tensors.  `flash_attention_bwd_dq.launches` counts kernel
-    launches."""
+    CPU tensors.  `flash_attention_bwd_dq.launches` counts kernel launches,
+    `.launches_by_route` those of each dtype route."""
     if not q.is_cuda:
         return _dq_plain(q, k, v, do, lse, delta, causal,
                          _scale(q, sm_scale))
@@ -226,10 +226,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
              *_bwd_scalars(q, k, causal, sm_scale))
     _kernels.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_by_route[ROUTES[q.dtype]] += 1
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_route = dict.fromkeys(ROUTES.values(), 0)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,

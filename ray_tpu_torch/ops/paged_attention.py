@@ -113,9 +113,11 @@ def paged_decode_attention(q, k_pages, v_pages, k_tail, v_tail,
     pos:        [B] int32           current attend position
     tail_start: [B] int32           pos snapshot at window start
 
-    Returns o [B, kvh, rep, hd].  CUDA tensors launch the kernel (counted
-    in `paged_decode_attention.launches`); CPU tensors take the plain
-    version."""
+    Returns o [B, kvh, rep, hd].  CUDA tensors launch the kernel once
+    (counted in `paged_decode_attention.launches`): a cluster of 8 blocks
+    per (slot, kv head) splits the slot's admitted keys, which the kernel
+    counts on the device from pos and tail_start, so the call never reads
+    device state on the host.  CPU tensors take the plain version."""
     if not q.is_cuda:
         return paged_decode_reference(q, k_pages, v_pages, k_tail, v_tail,
                                       page_table, pos, tail_start,

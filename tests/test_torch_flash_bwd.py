@@ -149,3 +149,25 @@ def test_dtype_routes_and_cpu_counts():
                                    fa.attention_delta(o, do))
     assert (fa.flash_attention_fwd.launches_by_route,
             fa.flash_attention_bwd_dkv.launches_by_route) == before
+
+
+def test_dq_routes_and_cpu_counts():
+    """dQ has a route per dtype like the forward and dK/dV: bf16 on the
+    tensor cores (wgmma), f32 on the FMA kernel.  CPU tensors launch
+    neither, so no dQ count moves, and the CPU result is the plain
+    version's in both dtypes."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    dq_fn = fa.flash_attention_bwd_dq
+    before = (dq_fn.launches, dict(dq_fn.launches_by_route))
+    assert set(before[1]) == {"wgmma", "fma"}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (torch.from_numpy(a).to(dtype)
+                       for a in _inputs(5, 1, 33, 4, 2, 32))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = fa.attention_delta(o, do)
+        dq = dq_fn(q, k, v, do, lse, delta)
+        assert dq.dtype == dtype
+        assert torch.equal(dq, fa._dq_plain(q, k, v, do, lse, delta, True,
+                                            32 ** -0.5))
+    assert (dq_fn.launches, dq_fn.launches_by_route) == before

@@ -74,6 +74,15 @@ _NAMES = [
      " int, int, int, int, float)", "flash_bwd_dq"),
     ("void (anonymous namespace)::paged_decode_kernel<__nv_bfloat16, 128>()",
      "paged_decode"),
+    ("void (anonymous namespace)::flash_bwd_dq_wgmma_kernel<128>(CUtensorMap_"
+     "st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, "
+     "float const*, __nv_bfloat16*, int, int, int, int, int, float, float)",
+     "flash_bwd_dq"),
+    ("void (anonymous namespace)::paged_decode_split_kernel<__nv_bfloat16, "
+     "128, 4>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, __nv_bfloat16 const*, int const*, int "
+     "const*, int const*, __nv_bfloat16*, int, int, int, int, float)",
+     "paged_decode"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::"
      "BinaryFunctor<float, float, float>>", "other"),
