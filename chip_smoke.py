@@ -21,11 +21,19 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  its dtype's route, and every backward and paged case
                  gives the same bits when run again.
   3. engine_small_f32 -- the whole engine at small depth (`debug`, f32) on
-                 CUDA (kernels) and on the CPU (plain versions) from the
-                 same parameters: a shared page-aligned prefix, a
-                 whole-prompt hit and a pool small enough to preempt; the
-                 greedy tokens must be identical; and one decode window
-                 dispatched under CUDA sync debug mode "error".
+                 CUDA (kernels, captured decode windows) and on the CPU
+                 (plain versions, eager windows) from the same parameters:
+                 warmup, a shared page-aligned prefix, a whole-prompt hit, a
+                 wave mixing base and LoRA rows, a sync-window change to 2,
+                 a prefill-only export imported into a second engine, a
+                 prefix demoted from one engine and grafted into the other,
+                 a live weight swap, and a pool small enough to preempt; the
+                 greedy tokens must be identical on both devices, the swap
+                 must give a fresh engine's tokens, the migration an
+                 uninterrupted run's, the graft a prefix hit.  On CUDA every
+                 window after the first of its size K must be a graph
+                 replay, and one replayed window runs under CUDA sync
+                 debug mode "error".
   4. serve_8b -- `llama3-8b` at full width and depth in bf16 with random
                  seeded weights and the engine's defaults: eight requests
                  of 300-1000 prompt tokens submitted together, 64 new
@@ -33,7 +41,25 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  tokens of a finished prompt (a prefix-cache hit: the
                  suffix path).  The launch counters are zeroed just before
                  this phase and read just after: both kernels must have
-                 run, the forward on its bf16 route only.
+                 run, the forward on its bf16 route only, every decode
+                 window must be a replay of the graph the warm-up
+                 captured, and the paged kernel's launches must equal
+                 replays x layers x K.  Then a wave of fresh prompts runs
+                 under torch.profiler (profile_serve.trace_wave): its
+                 busy share, and its paged kernels as the trace counts them
+                 against the counter.
+  4b. serve_8b_engine -- the same model and weights on four engines:
+                 a mixed wave of four base and four adapter requests on an
+                 engine with LoRA banks (2 slots, rank 16) whose base rows
+                 must equal the same requests on a bank-free engine, one
+                 request prefilled on a prefill-only engine and decoded on
+                 a decode engine (the same tokens as the request run
+                 alone; the prefill, decode and bank-free engines share
+                 one tree with share_params), and a same-shape
+                 update_weights of the banked engine's own copy (version
+                 bump, radix tree flushed, graphs still replaying, the
+                 same tokens; a sharing engine refuses one).  Counters
+                 zeroed before, read after, as in 4.
   5. train_small_f32 -- three `make_train_step` steps of `debug` in f32
                  (TF32 off) at seq 100, batch 2, from the same params and
                  batch on CUDA (kernels) and on the CPU (plain versions),
@@ -445,15 +471,25 @@ def phase_kernels(timer):
 
 # ----------------------------------------------- phase 3: small f32 engine
 SHARED = [(i * 7 + 3) % 250 + 1 for i in range(32)]      # 2 pages of 16
+GRAFT = [(i * 11 + 5) % 250 + 1 for i in range(40)]      # 2 pages + 8
+MIGRATE = SHARED[:16] + [(i * 13 + 1) % 250 + 1 for i in range(21)]
 
 
-def run_small(engine_cls, cfg, params, device):
-    """Greedy tokens of the small workloads on one device."""
+def run_small(engine_cls, cfg, params, device, adapter, new_params):
+    """Greedy tokens of the small workloads on one device, and each
+    engine's counters.  `eng` (LoRA banks) serves the prefix, COW, LoRA,
+    sync-window and prefill-only requests, demotes a prefix and takes a
+    weight swap; `dec` resumes the exported request and takes the
+    demoted prefix as a graft.  Each engine decodes with its own copy of
+    `params`."""
     out = {}
-    eng = engine_cls(cfg, params, device=device, max_batch=4, max_len=128,
-                     page_size=16, seed=0)
+    kw = dict(device=device, max_batch=4, max_len=128, page_size=16, seed=0)
+    eng = engine_cls(cfg, params, lora_slots=2, lora_rank=4, **kw)
+    dec = engine_cls(cfg, params, **kw)
     eng.start()
+    dec.start()
     try:
+        eng.warmup()
         out["prefix"] = [eng.generate(SHARED + t, max_new_tokens=12)["tokens"]
                          for t in ([40, 41, 42], [50, 51], [60])]
         out["cow"] = [eng.generate(SHARED, max_new_tokens=8)["tokens"]
@@ -461,8 +497,56 @@ def run_small(engine_cls, cfg, params, device):
         st = eng.stats()
         out["hits"], out["cow_copies"] = st["prefix_hit_tokens"], \
             st["cow_copies"]
+        # One wave mixing base and adapter rows.
+        eng.load_adapter("t/a", adapter)
+        futs = [eng.submit(SHARED[:20] + [70 + i], max_new_tokens=12,
+                           model_id="t/a" if i % 2 else None)
+                for i in range(4)]
+        out["lora"] = [f.result(timeout=600)["tokens"] for f in futs]
+        # A smaller live window, then back to the configured one.
+        eng.set_sync_window(2)
+        out["window2"] = eng.generate(SHARED[:9], max_new_tokens=11)["tokens"]
+        eng.set_sync_window(None)
+        # Prefill on eng, decode on dec.
+        out["migrate_ref"] = dec.generate(MIGRATE, max_new_tokens=12,
+                                          _cache_ok=False)["tokens"]
+        exp = eng.submit(MIGRATE, max_new_tokens=1, prefill_only=True) \
+            .result(timeout=600)["kv_export"]
+        out["migrated"] = dec.kv_import(
+            MIGRATE, exp["tokens"], exp["kv"], kv_len=exp["len"],
+            max_new_tokens=12, sample_seed=exp["sample_seed"]
+        ).result(timeout=600)["tokens"]
+        # Demote GRAFT's two blocks from eng, graft them into dec.
+        out["graft_src"] = eng.generate(GRAFT, max_new_tokens=8)["tokens"]
+        store = {}
+        eng.set_prefix_store(
+            lambda e: store.setdefault(tuple(e["tokens"]), e) is e,
+            min_idle=0, period_s=0.01, watermark_frac=0.0, limit=8,
+            max_inflight=8)
+        key, deadline = tuple(GRAFT[:32]), time.time() + 60
+        while key not in store and time.time() < deadline:
+            eng._wake.set()
+            time.sleep(0.01)
+        eng.set_prefix_store(None)
+        h0 = dec.stats()["prefix_hit_tokens"]
+        out["grafted"] = dec.kv_graft(list(key), store[key]["kv"], kv_len=32,
+                                      weight_version=0).result(timeout=600)
+        out["graft"] = dec.generate(GRAFT, max_new_tokens=8)["tokens"]
+        out["graft_hit_tokens"] = dec.stats()["prefix_hit_tokens"] - h0
+        # A live weight swap.
+        out["before_swap"] = eng.generate(SHARED[:5], 10)["tokens"]
+        eng.update_weights(new_params)
+        out["swapped"] = eng.generate(SHARED[:5], 10)["tokens"]
+        counters = {"eng": eng.stats(), "dec": dec.stats(),
+                    "eng_graphs": eng.graph_stats()}
     finally:
         eng.stop()
+        dec.stop()
+    fresh = engine_cls(cfg, tree_to(new_params, device), **kw)
+    try:
+        out["fresh"] = fresh.generate(SHARED[:5], 10)["tokens"]
+    finally:
+        fresh.stop()
     starved = engine_cls(cfg, params, device=device, max_batch=4,
                          max_len=128, page_size=16, kv_pages=7,
                          prefix_cache=False, kv_preempt=True, seed=0)
@@ -474,14 +558,15 @@ def run_small(engine_cls, cfg, params, device):
     finally:
         starved.stop()
     out["preemptions"] = starved.preemptions
-    return out
+    return out, counters
 
 
-def window_sync_check(cfg, params) -> int:
+def window_sync_check(cfg, params) -> dict:
     """One decode window dispatched under CUDA sync debug mode "error":
     the K steps, the sampling and the tail merge never wait on the device
     (the engine's one sync per window is its copy of the returned token
-    block).  Drives the loop's own steps on this thread."""
+    block).  Drives the loop's own steps on this thread; the first window
+    captures the graph, the checked one replays it."""
     from ray_tpu_torch.serve.llm import LLMEngine
 
     eng = LLMEngine(cfg, params, device="cuda", max_batch=4, max_len=128,
@@ -491,7 +576,7 @@ def window_sync_check(cfg, params) -> int:
                    temperature=0.8 * (i % 2))
     eng._admit()
     active = eng._ensure_decode_blocks()
-    eng._decode_window(active)            # first use: pinned staging
+    eng._decode_window(active)            # first use: eager, then capture
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -499,13 +584,22 @@ def window_sync_check(cfg, params) -> int:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return len(active)
+    if eng.graph_replays != 1:
+        raise AssertionError("the checked window was not a graph replay")
+    return {"slots": len(active), "replayed": eng.graph_replays}
 
 
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
-    return tree.detach().to(device)
+    return tree.detach().to(device) if isinstance(tree, torch.Tensor) \
+        else tree
+
+
+def graph_accounting(stats: dict) -> dict:
+    """Every window after the first of its kind replays its graph."""
+    return {k: stats[k] for k in ("decode_windows", "graph_replays",
+                                  "graph_captures", "graph_capture_s")}
 
 
 def phase_engine_small():
@@ -519,22 +613,35 @@ def phase_engine_small():
     cfg = dataclasses.replace(llama.llama_configs()["debug"],
                               dtype=torch.float32)
     cpu_params = llama.init_params(cfg, torch.Generator().manual_seed(SEED))
+    new_params = llama.init_params(cfg,
+                                   torch.Generator().manual_seed(SEED + 5))
+    adapter = llama.init_lora_adapter(torch.Generator().manual_seed(SEED + 1),
+                                      cfg, 4)
 
     n0 = (flash_counts(), paged_decode_attention.launches)
     t0 = time.perf_counter()
-    gpu = run_small(LLMEngine, cfg, tree_to(cpu_params, "cuda"), "cuda")
+    gpu, counters = run_small(LLMEngine, cfg, tree_to(cpu_params, "cuda"),
+                              "cuda", tree_to(adapter, "cuda"), new_params)
     t_gpu = time.perf_counter() - t0
-    synced_slots = window_sync_check(cfg, tree_to(cpu_params, "cuda"))
-    cpu = run_small(LLMEngine, cfg, cpu_params, "cpu")
+    sync = window_sync_check(cfg, tree_to(cpu_params, "cuda"))
+    cpu, _ = run_small(LLMEngine, cfg, cpu_params, "cpu", adapter,
+                       new_params)
     fwd = {n: c - n0[0][n] for n, c in flash_counts().items()
            if n.startswith("flash_attention_fwd")}
     launched = {**fwd, "paged_decode_attention":
                 paged_decode_attention.launches - n0[1]}
-    same = {k: gpu[k] == cpu[k] for k in ("prefix", "cow", "preempt")}
+    same = {k: gpu[k] == cpu[k] for k in gpu}
+    graphs = {e: graph_accounting(counters[e]) for e in ("eng", "dec")}
     row = {"phase": "engine_small_f32", "same_tokens": same,
            "prefix_hit_tokens": gpu["hits"], "cow_copies": gpu["cow_copies"],
            "preemptions": gpu["preemptions"],
-           "window_without_host_sync_slots": synced_slots,
+           "graft": gpu["grafted"], "graft_hit_tokens": gpu["graft_hit_tokens"],
+           "swap_changed_tokens": gpu["swapped"] != gpu["before_swap"],
+           "swapped_equals_fresh_engine": gpu["swapped"] == gpu["fresh"],
+           "migrated_equals_uninterrupted":
+               gpu["migrated"] == gpu["migrate_ref"],
+           "graphs": graphs, "eng_graphs": counters["eng_graphs"],
+           "window_without_host_sync": sync,
            "kernel_launches": launched,
            "cuda_seconds": t_gpu}
     emit(row)
@@ -545,21 +652,38 @@ def phase_engine_small():
             or launched["flash_attention_fwd/fma"] == 0 \
             or launched["flash_attention_fwd/wgmma"]:
         raise AssertionError(f"small engine missed a path: {row}")
+    if not (row["swap_changed_tokens"] and row["swapped_equals_fresh_engine"]
+            and row["migrated_equals_uninterrupted"]
+            and gpu["grafted"]["grafted"] == 2
+            and gpu["graft_hit_tokens"] >= 32
+            and gpu["graft"] == gpu["graft_src"]
+            and counters["eng"]["weight_version"] == 1
+            and counters["dec"]["kv_imports"] == 1
+            and counters["eng"]["kv_exports"] == 1):
+        raise AssertionError(f"small engine: a slice path failed: {row}")
+    for name, g in graphs.items():
+        if g["graph_replays"] == 0 or g["decode_windows"] \
+                != g["graph_replays"] + g["graph_captures"]:
+            raise AssertionError(f"{name}: a window after the first of its "
+                                 f"kind was not a replay: {g}")
+    if set(counters["eng_graphs"]) != {"K=8", "K=2"}:
+        raise AssertionError(f"captured windows {counters['eng_graphs']} "
+                             "are not one per size, K=8 and K=2")
     return launched
 
 
 # ----------------------------------------------- phase 4: full-width 8B
-def phase_serve_8b(card):
+def paged_per_replay(cfg, k: int) -> int:
+    """Paged-kernel launches in one replay of a K-step window."""
+    return cfg.n_layers * k
+
+
+def phase_serve_8b(card, cfg, params, t_init):
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops.paged_attention import paged_decode_attention
     from ray_tpu_torch.serve.llm import LLMEngine
+    from ray_tpu_torch.tools.profile_serve import trace_wave, wave_decode_rate
 
-    cfg = llama.llama_configs()["llama3-8b"]
-    t0 = time.perf_counter()
-    params = llama.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(SEED))
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
     # The hidden states of a real prompt come out finite and shaped.
     probe = torch.arange(1, 65, device="cuda")[None]
     hidden, ks, _ = llama.prefill(params, probe, cfg)
@@ -573,10 +697,12 @@ def phase_serve_8b(card):
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                for n in MAIN_PROMPTS]
     eng = LLMEngine(cfg, params, seed=SEED)      # engine defaults
+    K = eng.steps_per_sync
     eng.start()
     try:
-        # Warm-up: a 300-token prompt (prefill bucket 512); the wave below
-        # pads to bucket 1024.
+        # Warm-up: a 300-token prompt (prefill bucket 512) whose one decode
+        # window captures the greedy K-step graph; the wave below pads to
+        # bucket 1024 and every one of its windows replays that graph.
         eng.generate(rng.integers(1, cfg.vocab_size, size=300).tolist(),
                      max_new_tokens=8)
         torch.cuda.synchronize()
@@ -595,6 +721,15 @@ def phase_serve_8b(card):
                     if n.startswith("flash_attention_fwd")}
         launches["paged_decode_attention"] = paged_decode_attention.launches
         s1 = eng.stats()
+        # The same wave shape again under torch.profiler (fresh prompts, no
+        # prefix hits): the busy share, and the replayed windows' paged
+        # kernels counted in the trace against the credited counter.
+        traced_prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+                          for n in MAIN_PROMPTS]
+        p0 = paged_decode_attention.launches
+        traced = trace_wave(eng, traced_prompts)
+        traced_counter = paged_decode_attention.launches - p0
+        graphs = eng.graph_stats()
     finally:
         eng.stop()
     for r in res + [r9]:
@@ -611,18 +746,181 @@ def phase_serve_8b(card):
             != launches["flash_attention_fwd"]:
         raise AssertionError(f"a kernel of the path never launched, or the "
                              f"bf16 forward left its route: {launches}")
+    replays = s1["graph_replays"] - s0["graph_replays"]
+    windows = s1["decode_windows"] - s0["decode_windows"]
+    traced_paged = traced["groups"].get("paged_decode", {}).get("launches")
+    if replays == 0 or replays != windows \
+            or launches["paged_decode_attention"] \
+            != replays * paged_per_replay(cfg, K):
+        raise AssertionError(
+            f"windows {windows}, replays {replays}, paged launches "
+            f"{launches['paged_decode_attention']} != replays x "
+            f"{paged_per_replay(cfg, K)}")
+    if traced["graph_replays"] != traced["decode_windows"] \
+            or traced_paged != traced_counter \
+            or traced_counter != traced["graph_replays"] \
+            * paged_per_replay(cfg, K):
+        raise AssertionError(f"traced wave: profiler counted {traced_paged} "
+                             f"paged kernels, the counter {traced_counter}, "
+                             f"replays {traced['graph_replays']}")
     ttft = [r["ttft_s"] for r in res]
-    decode_s = max(r["total_s"] for r in res) - max(ttft)
     emit({"phase": "serve_8b", "card": card, "model": "llama3-8b",
           "dtype": "bfloat16", "requests": len(res) + 1,
           "new_tokens_each": 64, "prompt_tokens": MAIN_PROMPTS,
           "init_params_s": t_init, "wave_s": wave_s,
           "ttft_s": {"min": min(ttft), "max": max(ttft)},
           "prefill_tokens_per_s": sum(MAIN_PROMPTS) / max(ttft),
-          "decode_tokens_per_s": 8 * 63 / decode_s,
+          "decode_tokens_per_s": wave_decode_rate(res),
           "ninth_ttft_s": r9["ttft_s"], "ninth_prefix_hit_tokens": hit,
           "preemptions": s1["preemptions"], "launches": launches,
+          "decode_windows": windows, "graph_replays": replays,
+          "graph_capture_s": s1["graph_capture_s"], "graphs": graphs,
+          "traced_wave": traced,
+          "traced_paged_kernels_profiler": traced_paged,
+          "traced_paged_kernels_counter": traced_counter,
+          "traced_device_busy_share": traced["device_busy_share"],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return launches
+
+
+LORA_PROMPTS = [300, 420, 510, 350, 470, 280, 505, 390]   # bucket 512
+
+
+def phase_serve_8b_engine(card, cfg, params):
+    """The rest of the engine at `llama3-8b` width and depth in bf16: a
+    mixed base / adapter batch on a banked engine (lora_slots 2, rank 16)
+    against the same requests on a bank-free engine, one request migrated
+    from a prefill engine to a decode engine against the same request run
+    alone, and a same-shape weight update on the banked engine, which
+    holds its own copy of the weights.  The other three share the
+    caller's tree (share_params, read-only); each engine captures its
+    greedy window at warm-up, so every counted window is a replay."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+    from ray_tpu_torch.serve.llm import LLMEngine
+    from ray_tpu_torch.tools.profile_serve import wave_decode_rate
+
+    V = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 8)
+    prompts = [rng.integers(1, V, size=n).tolist() for n in LORA_PROMPTS]
+    mig_prompt = rng.integers(1, V, size=700).tolist()
+    swap_prompt = rng.integers(1, V, size=400).tolist()
+    adapter = llama.init_lora_adapter(
+        torch.Generator(device="cuda").manual_seed(SEED + 1), cfg, 16)
+    pool = dict(seed=SEED, kv_pages=1 + 8 * 2)
+    banked = LLMEngine(cfg, params, lora_slots=2, lora_rank=16,
+                       name="banked", **pool)
+    shared = dict(pool, share_params=True)
+    plain = LLMEngine(cfg, params, name="plain", **shared)
+    pre = LLMEngine(cfg, params, name="prefill", **shared)
+    dec = LLMEngine(cfg, params, name="decode", **shared)
+    engines = (banked, plain, pre, dec)
+    K = banked.steps_per_sync
+    for e in engines:
+        e.start()
+    try:
+        banked.load_adapter("t/a", adapter)
+        warm = rng.integers(1, V, size=100).tolist()
+        for e in (banked, plain, dec):
+            e.generate(warm, max_new_tokens=K + 1)
+        torch.cuda.synchronize()
+        zero_flash_counts()
+        paged_decode_attention.launches = 0
+        s0 = {e.name: e.stats() for e in engines}
+        futs = [banked.submit(p, max_new_tokens=32,
+                              model_id="t/a" if i % 2 else None)
+                for i, p in enumerate(prompts)]
+        mixed_res = [f.result(timeout=600) for f in futs]
+        futs = [plain.submit(p, max_new_tokens=32) for p in prompts]
+        base_res = [f.result(timeout=600) for f in futs]
+        mixed = [r["tokens"] for r in mixed_res]
+        base = [r["tokens"] for r in base_res]
+        alone = plain.generate(mig_prompt, max_new_tokens=32)["tokens"]
+        exp = pre.submit(mig_prompt, max_new_tokens=1, prefill_only=True) \
+            .result(timeout=600)["kv_export"]
+        migrated = dec.kv_import(
+            mig_prompt, exp["tokens"], exp["kv"], kv_len=exp["len"],
+            max_new_tokens=32, sample_seed=exp["sample_seed"]
+        ).result(timeout=600)["tokens"]
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in flash_counts().items()
+                    if n.startswith("flash_attention_fwd")}
+        launches["paged_decode_attention"] = paged_decode_attention.launches
+        s1 = {e.name: e.stats() for e in engines}
+        # A same-shape update of the banked engine's own copy: the values
+        # of the shared tree, copied in.  An engine on the shared tree
+        # refuses one.
+        before = banked.generate(swap_prompt, max_new_tokens=16)["tokens"]
+        cached_before = banked._mgr.cached_count()
+        replays_before = banked.graph_replays
+        version = banked.update_weights(params)
+        after = banked.generate(swap_prompt, max_new_tokens=16)["tokens"]
+        torch.cuda.synchronize()
+        try:
+            dec.update_weights(params)
+            shared_refused = False
+        except ValueError:
+            shared_refused = True
+        swap = {"version": banked.stats()["weight_version"],
+                "staged_version": version,
+                "weight_updates": banked.weight_updates,
+                "last_weight_sync_ms": banked.last_weight_sync_ms,
+                "cached_blocks_before": cached_before,
+                "cached_blocks_after": banked._mgr.cached_count(),
+                "replays_after_swap": banked.graph_replays - replays_before,
+                "captures": len(banked.graph_stats()),
+                "same_tokens": after == before,
+                "shared_engine_refused": shared_refused}
+        graphs = {e.name: e.graph_stats() for e in engines}
+    finally:
+        for e in engines:
+            e.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_rows = [i for i in range(8) if i % 2 == 0]
+    lora_rows = [i for i in range(8) if i % 2]
+    replays = sum(s1[n]["graph_replays"] - s0[n]["graph_replays"]
+                  for n in s0)
+    windows = sum(s1[n]["decode_windows"] - s0[n]["decode_windows"]
+                  for n in s0)
+    row = {"phase": "serve_8b_engine", "card": card, "model": "llama3-8b",
+           "dtype": "bfloat16", "lora_slots": 2, "lora_rank": 16,
+           "prompt_tokens": LORA_PROMPTS, "new_tokens_each": 32,
+           "base_rows_equal_bank_free":
+               all(mixed[i] == base[i] for i in base_rows),
+           "adapter_rows_differ":
+               all(mixed[i] != base[i] for i in lora_rows),
+           "migrated_equals_alone": migrated == alone,
+           "decode_tokens_per_s": {
+               "banked_mixed": wave_decode_rate(mixed_res),
+               "bank_free": wave_decode_rate(base_res)},
+           "kv_export_shape": list(exp["kv"].shape),
+           "kv_exports": s1["prefill"]["kv_exports"],
+           "kv_imports": s1["decode"]["kv_imports"],
+           "weight_swap": swap, "launches": launches,
+           "decode_windows": windows, "graph_replays": replays,
+           "replays_by_engine": {n: s1[n]["graph_replays"]
+                                 - s0[n]["graph_replays"] for n in s0},
+           "graph_capture_s": {n: s1[n]["graph_capture_s"] for n in s1},
+           "graphs": graphs}
+    emit(row)
+    if not (row["base_rows_equal_bank_free"] and row["adapter_rows_differ"]
+            and row["migrated_equals_alone"] and row["kv_exports"] == 1
+            and row["kv_imports"] == 1):
+        raise AssertionError(f"serve_8b_engine: tokens disagree: {row}")
+    if not (swap["version"] == 1 and swap["weight_updates"] == 1
+            and swap["cached_blocks_before"] > 0
+            and swap["cached_blocks_after"] == 0
+            and swap["replays_after_swap"] > 0 and swap["captures"] == 1
+            and swap["same_tokens"] and swap["shared_engine_refused"]):
+        raise AssertionError(f"serve_8b_engine: weight swap: {swap}")
+    if replays == 0 or replays != windows \
+            or launches["paged_decode_attention"] \
+            != replays * paged_per_replay(cfg, K) \
+            or launches["flash_attention_fwd/wgmma"] \
+            != launches["flash_attention_fwd"]:
+        raise AssertionError(f"serve_8b_engine: windows {windows}, replays "
+                             f"{replays}, launches {launches}")
     return launches
 
 
@@ -885,7 +1183,18 @@ def main() -> int:
     rows = phase_kernels(timer)
     del timer
     small = phase_engine_small()
-    serve = phase_serve_8b(card)
+    from ray_tpu_torch.models import llama
+
+    cfg8 = llama.llama_configs()["llama3-8b"]
+    t0 = time.perf_counter()
+    params8 = llama.init_params(
+        cfg8, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    serve = phase_serve_8b(card, cfg8, params8, time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_8b_engine(card, cfg8, params8)
+    del params8
     gc.collect()
     torch.cuda.empty_cache()
     train_small = phase_train_small()

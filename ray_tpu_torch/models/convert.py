@@ -1,5 +1,5 @@
-"""Move a JAX-package parameter tree, or a whole training state, into the
-port.
+"""Move a JAX-package parameter tree, a LoRA adapter, or a whole training
+state, into the port.
 
 The caller turns each leaf into a numpy array (`np.asarray(leaf)`), so
 this module needs no JAX.  Keys, shapes and the stacked layer axis stay
@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.llama import LlamaConfig, param_shapes
+from ray_tpu_torch.models.llama import (LlamaConfig, lora_target_dims,
+                                        param_shapes)
 from ray_tpu_torch.train.step import (ClippedAdamW, TrainState,
                                       create_train_state, param_leaves)
 
@@ -21,6 +22,12 @@ def _tensor(arr) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":        # ml_dtypes' bf16: reinterpret
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A tensor as it is, anything else (numpy, ml_dtypes bf16 included)
+    as a CPU tensor copy."""
+    return x if isinstance(x, torch.Tensor) else _tensor(x)
 
 
 def params_from_jax(tree: dict, cfg: LlamaConfig, device="cuda") -> dict:
@@ -40,6 +47,30 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device="cuda") -> dict:
         return t.to(device=device, dtype=cfg.dtype)
 
     return convert(tree, param_shapes(cfg), "")
+
+
+def lora_adapter_from_jax(adapter: dict, cfg: LlamaConfig,
+                          device="cuda") -> dict:
+    """The port's adapter from the reference's {"rank", "targets": {t:
+    {"a": [L, din, r], "b": [L, r, dout]}}} (numpy leaves), in the
+    config's dtype on `device`."""
+    dims = lora_target_dims(cfg)
+    out = {}
+    for t, ab in adapter["targets"].items():
+        if t not in dims:
+            raise ValueError(f"unknown lora target {t!r}; valid: "
+                             f"{sorted(dims)}")
+        a, b = _tensor(ab["a"]), _tensor(ab["b"])
+        din, dout = dims[t]
+        if (a.dim() != 3 or b.dim() != 3
+                or tuple(a.shape[:2]) != (cfg.n_layers, din)
+                or b.shape[0] != cfg.n_layers or b.shape[2] != dout
+                or a.shape[2] != b.shape[1]):
+            raise ValueError(f"lora target {t!r}: shapes {tuple(a.shape)} / "
+                             f"{tuple(b.shape)} do not fit the config")
+        out[t] = {"a": a.to(device=device, dtype=cfg.dtype),
+                  "b": b.to(device=device, dtype=cfg.dtype)}
+    return {"rank": int(adapter.get("rank") or 0), "targets": out}
 
 
 def train_state_from_jax(tree: dict, cfg: LlamaConfig,

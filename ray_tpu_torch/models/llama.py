@@ -11,8 +11,10 @@ The training surface (`forward`, `loss_fn`, `token_logprobs`, `run_trunk`)
 checkpoints each layer when `cfg.remat`, with a selective-checkpoint
 policy per `cfg.remat_mode` (`remat_policy`).
 
-LoRA arguments are accepted as None only: the batched-adapter path is
-not ported yet.
+Batched multi-LoRA (`lora` arguments of the serving functions): adapters
+live in per-target banks, stacked [L, n_slots, din, r] / [L, n_slots, r,
+dout] tensors, and a per-row slot index gathers each row's adapter
+(BGMV, `_lora_proj`).  Slot 0 is all zeros, the base model.
 """
 from __future__ import annotations
 
@@ -154,9 +156,87 @@ def _layer(params: dict, lid: int) -> dict:
     return {k: params["layers"][k][lid] for k in LAYER_KEYS}
 
 
-def _no_lora(lora) -> None:
-    if lora:
-        raise NotImplementedError("LoRA banks are not ported yet")
+# ------------------------------------------------------------------ lora
+# Batched multi-LoRA: per-target banks [L, n_slots, din, r] / [L, n_slots,
+# r, dout] and an int slot index per row, gathered inside the step.  Bank
+# writes change data in place, never the tensors a captured decode graph
+# reads.  Slot 0 is all zeros = the base model (y + 0.0 == y), so base and
+# adapter rows mix freely in one batch.
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
+
+
+def lora_target_dims(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
+    """(din, dout) per LoRA-targetable projection."""
+    hd = cfg.head_dim
+    return {
+        "wq": (cfg.dim, cfg.n_heads * hd),
+        "wk": (cfg.dim, cfg.n_kv_heads * hd),
+        "wv": (cfg.dim, cfg.n_kv_heads * hd),
+        "wo": (cfg.n_heads * hd, cfg.dim),
+    }
+
+
+def init_lora_adapter(generator: torch.Generator, cfg: LlamaConfig,
+                      rank: int, *, targets: tuple | None = None,
+                      scale: float = 1.0) -> dict:
+    """Random adapter {"rank", "targets": {t: {"a": [L, din, r], "b":
+    [L, r, dout]}}} on the generator's device.  The LoRA scale is folded
+    into b; b is random (a zero b would make every synthetic adapter a
+    no-op)."""
+    if rank < 1:
+        raise ValueError(f"lora rank must be >= 1, got {rank}")
+    dims = lora_target_dims(cfg)
+    targets = tuple(targets) if targets is not None else LORA_TARGETS
+    bad = set(targets) - set(dims)
+    if bad:
+        raise ValueError(f"unknown lora targets {sorted(bad)}; valid: "
+                         f"{sorted(dims)}")
+    L, device = cfg.n_layers, generator.device
+    out = {}
+    for t in targets:
+        din, dout = dims[t]
+        a = torch.randn((L, din, rank), generator=generator, device=device)
+        b = torch.randn((L, rank, dout), generator=generator, device=device)
+        out[t] = {"a": (a * din ** -0.5).to(cfg.dtype),
+                  "b": (b * (rank ** -0.5 * scale)).to(cfg.dtype)}
+    return {"rank": int(rank), "targets": out}
+
+
+def merge_lora(params: dict, adapter: dict, cfg: LlamaConfig) -> dict:
+    """A new param tree with the adapter merged dense (W + A @ B,
+    accumulated in f32); leaves it does not target are shared."""
+    layers = dict(params["layers"])
+    for t, ab in adapter["targets"].items():
+        w = layers[t]
+        delta = torch.einsum("ldr,lro->ldo", ab["a"].float(), ab["b"].float())
+        layers[t] = (w.float() + delta.to(w.device)).to(w.dtype)
+    return {**params, "layers": layers}
+
+
+def _lora_proj(h, w, bank, idx):
+    """h @ w plus each row's low-rank delta (h @ A[idx]) @ B[idx].
+
+    bank: {"a": [n_slots, din, r], "b": [n_slots, r, dout]}, one layer's
+    slice of the engine bank, or None (plain projection); idx: [b] slot
+    per row.  The delta accumulates in f32 and casts once; slot 0's zero
+    rows add an exact 0.0."""
+    y = h @ w
+    if bank is None:
+        return y
+    a = bank["a"][idx]                                  # [b, din, r]
+    bb = bank["b"][idx]                                 # [b, r, dout]
+    t = torch.einsum("b...d,bdr->b...r", h.float(), a.float())
+    d = torch.einsum("b...r,bro->b...o", t, bb.float())
+    return y + d.to(y.dtype)
+
+
+def _lora_layer_slice(lora, lid):
+    """One layer's bank views ({} when there are none) and the slot
+    index."""
+    if not lora:
+        return {}, None
+    return ({t: {"a": ab["a"][lid], "b": ab["b"][lid]}
+             for t, ab in lora["banks"].items()}, lora["idx"])
 
 
 # --------------------------------------------------------------- forward
@@ -173,13 +253,18 @@ def _mlp_block(x, lp, cfg: LlamaConfig):
     return x + (h @ lp["w_down"])
 
 
-def _qkv(x, lp, cfg: LlamaConfig):
+def _qkv(x, lp, cfg: LlamaConfig, lb=None, idx=None):
+    """q, k, v of one layer; `lb` ({target: bank slice}) and `idx` add
+    the rows' LoRA deltas."""
     b, s, _ = x.shape
+    lb = lb or {}
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    return q, k, v
+    q = _lora_proj(h, lp["wq"], lb.get("wq"), idx)
+    k = _lora_proj(h, lp["wk"], lb.get("wk"), idx)
+    v = _lora_proj(h, lp["wv"], lb.get("wv"), idx)
+    return (q.reshape(b, s, cfg.n_heads, cfg.head_dim),
+            k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim))
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -189,8 +274,10 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     tokens [b, P] (right-padded).  Returns (hidden [b, P, dim] post final
     norm, k [L, b, P, n_kv, hd], v likewise), RoPE applied.  Padding rows
     produce garbage K/V that decode never attends to (causal masking keeps
-    them out of the real rows)."""
-    _no_lora(lora)
+    them out of the real rows).
+
+    lora: None (base model) or {"idx": [b] slots, "banks": {target: {"a":
+    [L, n_slots, din, r], "b": [L, n_slots, r, dout]}}}."""
     b, P = tokens.shape
     x = embed_lookup(params["embed"], tokens, cfg.dtype)
     cos, sin = rope_frequencies(cfg.head_dim, P, cfg.rope_theta,
@@ -198,11 +285,12 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     ks, vs = [], []
     for lid in range(cfg.n_layers):
         lp = _layer(params, lid)
-        q, k, v = _qkv(x, lp, cfg)
+        lb, idx = _lora_layer_slice(lora, lid)
+        q, k, v = _qkv(x, lp, cfg, lb, idx)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         o = attention(q, k, v, causal=True)
-        x = x + (o.reshape(b, P, -1) @ lp["wo"])
+        x = x + _lora_proj(o.reshape(b, P, -1), lp["wo"], lb.get("wo"), idx)
         x = _mlp_block(x, lp, cfg)
         ks.append(k.to(cfg.dtype))
         vs.append(v.to(cfg.dtype))
@@ -266,8 +354,7 @@ def prefill_with_prefix(params: dict, tokens: torch.Tensor,
     gathers its prefix rows dense and runs GQA attention where suffix
     query i admits prefix keys < pos0[b] plus suffix keys j <= i -- plain
     einsum, as in the reference.  Returns (hidden, ks, vs) with
-    prefill()'s contract."""
-    _no_lora(lora)
+    prefill()'s contract; `lora` as in prefill()."""
     b, S = tokens.shape
     page = k_pages[0].shape[2]
     Pp = prefix_table.shape[1] * page
@@ -286,7 +373,8 @@ def prefill_with_prefix(params: dict, tokens: torch.Tensor,
     ks_out, vs_out = [], []
     for lid in range(cfg.n_layers):
         lp = _layer(params, lid)
-        q, k, v = _qkv(x, lp, cfg)
+        lb, idx = _lora_layer_slice(lora, lid)
+        q, k, v = _qkv(x, lp, cfg, lb, idx)
         q = apply_rope(q, cos, sin, positions=positions)
         k = apply_rope(k, cos, sin, positions=positions)
         k = k.to(cfg.dtype)
@@ -301,7 +389,8 @@ def prefill_with_prefix(params: dict, tokens: torch.Tensor,
         a = a.masked_fill(~admit[:, None, None], -1e30)
         probs = torch.softmax(a, dim=-1).to(cfg.dtype)
         o = torch.einsum("bgrsk,bkgd->bsgrd", probs, cv)
-        x = x + (o.reshape(b, S, cfg.n_heads * cfg.head_dim) @ lp["wo"])
+        x = x + _lora_proj(o.reshape(b, S, cfg.n_heads * cfg.head_dim),
+                           lp["wo"], lb.get("wo"), idx)
         x = _mlp_block(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.stack(ks_out), torch.stack(vs_out)
@@ -318,9 +407,8 @@ def decode_step_paged(params: dict, pages: dict, tails: dict,
     The new K/V rows are written IN PLACE into tails {"k"/"v": [L x [B,
     kvh, kt, hd]]} at the shared in-window column `j` (a Python int:
     every slot's pos advances in lockstep).  `rope` optionally passes the
-    (cos, sin) tables covering maxp * page positions.  Returns (logits
-    [B, vocab] f32, tails)."""
-    _no_lora(lora)
+    (cos, sin) tables covering maxp * page positions; `lora` as in
+    prefill().  Returns (logits [B, vocab] f32, tails)."""
     b = tokens.shape[0]
     n_rep = cfg.n_heads // cfg.n_kv_heads
     x = embed_lookup(params["embed"], tokens[:, None], cfg.dtype)
@@ -332,7 +420,8 @@ def decode_step_paged(params: dict, pages: dict, tails: dict,
     positions = pos[:, None]
     for lid in range(cfg.n_layers):
         lp = _layer(params, lid)
-        q, k, v = _qkv(x, lp, cfg)
+        lb, idx = _lora_layer_slice(lora, lid)
+        q, k, v = _qkv(x, lp, cfg, lb, idx)
         q = apply_rope(q, cos, sin, positions=positions)
         k = apply_rope(k, cos, sin, positions=positions)
         tails["k"][lid][:, :, j] = k[:, 0].to(cfg.dtype)
@@ -341,7 +430,8 @@ def decode_step_paged(params: dict, pages: dict, tails: dict,
             q.reshape(b, cfg.n_kv_heads, n_rep, cfg.head_dim).to(cfg.dtype),
             pages["k"][lid], pages["v"][lid], tails["k"][lid],
             tails["v"][lid], page_table, pos, tail_start)
-        x = x + (o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ lp["wo"])
+        x = x + _lora_proj(o.reshape(b, 1, cfg.n_heads * cfg.head_dim),
+                           lp["wo"], lb.get("wo"), idx)
         x = _mlp_block(x, lp, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x[:, 0] @ params["lm_head"]).float(), tails

@@ -13,7 +13,7 @@ The forward, dQ and dK/dV each have two kernels, chosen by dtype in the
 C entry (`ROUTES`): bf16 runs on the tensor cores (wgmma, TMA), f32 keeps
 the FMA loops, since the tensor cores would round f32 to TF32.
 `<wrapper>.launches` counts every launch, `<wrapper>.launches_by_route`
-each kernel's.
+each kernel's (ops/counters.py).
 
 The forward is registered as the custom op `ray_tpu_torch::flash_fwd`
 (`FLASH_FWD_OP`): a kernel launched through ctypes is invisible to
@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from ray_tpu_torch import _kernels
+from ray_tpu_torch.ops import counters
 
 HEAD_DIMS = (32, 64, 128)
 # The kernel each dtype launches in the forward, dQ and dK/dV C entries.
@@ -120,8 +121,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
              float(_scale(q, sm_scale)), _kernels.DTYPE_CODES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check(err, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.launches_by_route[ROUTES[q.dtype]] += 1
+    counters.count(flash_attention_fwd, ROUTES[q.dtype])
     return o, lse
 
 
@@ -225,8 +225,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              *_bwd_scalars(q, k, causal, sm_scale))
     _kernels.check(err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
-    flash_attention_bwd_dq.launches_by_route[ROUTES[q.dtype]] += 1
+    counters.count(flash_attention_bwd_dq, ROUTES[q.dtype])
     return dq
 
 
@@ -250,8 +249,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              *_bwd_scalars(q, k, causal, sm_scale))
     _kernels.check(err, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
-    flash_attention_bwd_dkv.launches_by_route[ROUTES[q.dtype]] += 1
+    counters.count(flash_attention_bwd_dkv, ROUTES[q.dtype])
     return dk, dv
 
 

@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from ray_tpu_torch import _kernels
+from ray_tpu_torch.ops import counters
 
 HEAD_DIMS = (32, 64, 128)
 GROUP_SIZES = (1, 2, 4, 8)
@@ -136,7 +137,7 @@ def paged_decode_attention(q, k_pages, v_pages, k_tail, v_tail,
              _kernels.DTYPE_CODES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    counters.count(paged_decode_attention)
     return o
 
 

@@ -1,5 +1,6 @@
-"""The host-side hashing and switch helpers the paged engine needs, copied
-from ray_tpu/serve/kv_router.py (the port imports nothing of ray_tpu).
+"""The host-side hashing helpers and kill switches the paged engine needs,
+copied from ray_tpu/serve/kv_router.py (the port imports nothing of
+ray_tpu).
 
 The RAY_TPU_* switch names are kept, so one environment drives the
 reference engine and the port alike.
@@ -19,6 +20,29 @@ def env_on(name: str, default: bool = True) -> bool:
     if v is None:
         return default
     return v not in ("0", "false", "False", "")
+
+
+def pd_disagg_on() -> bool:
+    """RAY_TPU_PD_DISAGG kill switch for prefill/decode disaggregation."""
+    return env_on("RAY_TPU_PD_DISAGG")
+
+
+def prefix_store_on() -> bool:
+    """RAY_TPU_PREFIX_STORE kill switch for the tier-2 prefix store; the
+    engine reads it per demotion scan."""
+    return env_on("RAY_TPU_PREFIX_STORE")
+
+
+def lora_on() -> bool:
+    """RAY_TPU_LORA kill switch for multi-LoRA serving (per request: off =
+    every request serves the base model)."""
+    return env_on("RAY_TPU_LORA")
+
+
+def lora_router_on() -> bool:
+    """RAY_TPU_LORA_ROUTER gates only the router's adapter-residency
+    scoring."""
+    return env_on("RAY_TPU_LORA_ROUTER")
 
 
 def chain_hash(parent: int, chunk) -> int:

@@ -15,20 +15,46 @@ reservation with copy-on-write) -> paged prefill (flash kernel on CUDA)
     newest request is preempted and recomputed later.
   - A decode window runs K steps with the current tokens kept on the
     device and makes exactly ONE device -> host copy (the [K, B] token
-    block).  Inside the window `j` is a Python int and nothing reads a
-    device value on the host.
+    block).  Its state lives in persistent device tensors (current
+    tokens, pos, page table, temperatures, seeds, starts, adapter slot
+    per lane, the tails, the weights, the LoRA banks), written in place
+    between windows.  On CUDA each window size K is captured once as a
+    CUDA graph and replayed after that, the counterpart of the
+    reference's one compiled program per window size: the first window
+    of a size runs eagerly on a side stream (it warms cuBLAS up for the
+    capture) and every later one is a replay.  As in the reference, the
+    window always computes the sampled and the greedy token and selects
+    per lane, so the graph does not depend on the lanes' temperatures.  The kernel wrappers'
+    launch counters are credited per replay with what the capture
+    recorded.  On the CPU the window runs eagerly.
   - Sampling: token g of request s is drawn by Gumbel-max from a
     counter-based hash keyed by (engine seed, s, g), on the device.  A
-    preempted-and-recomputed request therefore draws the same tokens it
-    would have drawn uninterrupted.  Greedy (temperature 0) uses no
-    randomness.  JAX's threefry cannot be reproduced in torch, so the
-    reference and the port agree token for token only when greedy.
+    preempted-and-recomputed or migrated request therefore draws the
+    same tokens it would have drawn uninterrupted, whatever the window
+    size.  Greedy (temperature 0) uses no randomness.  JAX's threefry
+    cannot be reproduced in torch, so the reference and the port agree
+    token for token only when greedy.
+  - Multi-LoRA: static per-target banks [L, slots+1, din, r] / [L,
+    slots+1, r, dout] (slot 0 all zeros = base model), rows written in
+    place by load_adapter; radix keys are salted per (adapter, version).
+  - PD disaggregation: submit(prefill_only=True) exports the request's
+    KV pages ([2, L, n, kvh, page, hd]) after its first token; kv_import
+    resumes it on another engine.  Device -> host copies of exports and
+    demotions finish on an export thread, behind a CUDA event.
+  - Tier-2 prefix store: cold radix leaves demote through a publish
+    callback (set_prefix_store); kv_graft re-warms the radix tree.
+  - Live weight updates (update_weights) copy a new tree into the
+    resident tensors (the engine's own copy of the weights) between
+    windows, so the captured graphs decode with the new weights; the
+    swap flushes the radix tree.
 
 Kill switches shared with the reference: RAY_TPU_PREFIX_CACHE=0 disables
 prefix matching, RAY_TPU_KV_PREEMPT=0 restores full-span up-front
-allocation.  Not ported yet (see ROADMAP.md): KV import/export, the
-prefix store and grafts, LoRA banks, live weight updates, the sync-window
-knob, the dense engine, metrics/tracing hooks, LLMServer.
+allocation, RAY_TPU_RL_WEIGHT_SYNC=0 drops weight updates (read per
+call), RAY_TPU_PREFIX_STORE=0 stops demotion (read per scan).  Not
+ported yet (see ROADMAP.md): the dense engine, the metrics, tracing,
+memory-ledger and failpoint hooks, ObjectRef arguments of
+update_weights, capturing prefill, LLMServer.
 """
 from __future__ import annotations
 
@@ -45,10 +71,14 @@ import torch
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.models.convert import as_tensor
+from ray_tpu_torch.ops import counters
 from ray_tpu_torch.ops.paged_attention import merge_tail_pages
 from ray_tpu_torch.ops.rope import rope_frequencies
+from ray_tpu_torch.serve import lora as lora_mod
 from ray_tpu_torch.serve.kv_blocks import BlockManager
-from ray_tpu_torch.serve.kv_router import env_on
+from ray_tpu_torch.serve.kv_router import env_on, prefix_store_on
+from ray_tpu_torch.serve.lora import AdapterLoadError
 
 _M32 = 0xFFFFFFFF
 
@@ -62,6 +92,15 @@ def _buckets_for(max_len: int, smallest: int = 32) -> list[int]:
     return out
 
 
+def _pow2(n: int) -> int:
+    """Smallest power of two >= n: the width padding of the COW-free
+    import / export / graft / demotion page lists."""
+    m = 1
+    while m < n:
+        m *= 2
+    return m
+
+
 def _mix32(x: torch.Tensor) -> torch.Tensor:
     """32-bit integer hash on int64 tensors holding values in [0, 2^32).
     Multipliers stay below 2^31, so no product overflows int64."""
@@ -70,6 +109,20 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 15)
     x = (x * 0x2C1B3C6D) & _M32
     return x ^ (x >> 16)
+
+
+def _leaves(tree, path: str = "") -> list[tuple[str, Any]]:
+    """(key path, leaf) of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in _leaves(tree[k],
+                                                           f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 @dataclass
@@ -82,6 +135,7 @@ class _Request:
     submitted_at: float = field(default_factory=time.perf_counter)
     first_token_at: float | None = None
     tokens: list[int] = field(default_factory=list)
+    slot: int = -1
     # Optional thread-safe sink for token streaming (None = end).
     token_queue: Any = None
     # KV blocks owned by this request, in table order (block i covers
@@ -91,10 +145,37 @@ class _Request:
     sample_seed: int = 0
     # First prompt position this admission prefills (below it: cached).
     prefill_from: int = 0
+    # False for warmup traffic: never match or populate the prefix cache.
+    cache_ok: bool = True
+    preempted: int = 0
+    # Finish after the first token and export the KV pages (kv_export).
+    prefill_only: bool = False
+    # Migrated KV (kv_import): [2, L, n, kvh, page, hd] scattered into
+    # fresh blocks at admission instead of a prefill; dropped right after.
+    import_kv: Any = None
+    import_len: int = 0
+    # Prefix-cache generation at admission: a request admitted before a
+    # weight swap must not commit its (old-policy) blocks.
+    cache_gen: int = 0
+    # Multi-LoRA identity: the adapter (None = base), its bank slot
+    # (0 = the all-zeros base row) and the KV salt, resolved at admission.
+    model_id: str | None = None
+    lora_slot: int = 0
+    salt: int = 0
 
     def emit(self, tok: int | None) -> None:
         if self.token_queue is not None:
             self.token_queue.put(tok)
+
+
+@dataclass
+class _WindowGraph:
+    """One captured K-step decode window and what its replays count."""
+    graph: Any
+    seq: torch.Tensor                  # [K, B] token block (output)
+    launches: dict                     # kernel launches of one window
+    capture_s: float
+    replays: int = 0
 
 
 class LLMEngine:
@@ -102,22 +183,44 @@ class LLMEngine:
 
     Runs on `device` ("cuda" unless the caller passes "cpu"); on a machine
     without CUDA the default raises RuntimeError rather than running on
-    the CPU."""
+    the CPU.  The engine decodes with its own copy of `params` (numpy
+    arrays or tensors), which update_weights rewrites in place, since the
+    captured windows read fixed addresses.  With `share_params=True` it
+    decodes with the caller's tensors themselves (on its device): engines
+    built so share one tree's memory, and their weights are read-only
+    (update_weights raises)."""
 
     def __init__(self, cfg, params=None, *, max_batch: int = 8,
                  max_len: int | None = None, seed: int = 0,
                  steps_per_sync: int = 8, page_size: int = 512,
                  kv_pages: int | None = None,
                  prefix_cache: bool | None = None,
-                 kv_preempt: bool | None = None, device=None):
+                 kv_preempt: bool | None = None,
+                 lora_slots: int = 0, lora_rank: int = 0,
+                 lora_targets: tuple | None = None,
+                 share_params: bool = False,
+                 name: str = "llm", device=None):
         self.device = resolve_device(device, "LLMEngine")
         self.cfg = cfg
+        self.name = name
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq
         self.steps_per_sync = max(1, steps_per_sync)
+        self._shared_params = params is not None and share_params
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama.init_params(cfg, gen)
+        elif share_params:
+            off = [p for p, t in _leaves(params)
+                   if not isinstance(t, torch.Tensor)
+                   or t.device.type != self.device.type]
+            if off:
+                raise ValueError(
+                    f"share_params needs tensors on {self.device}; "
+                    f"{off[:3]} are not")
+        else:
+            params = _tree_map(
+                lambda t: as_tensor(t).to(self.device, copy=True), params)
         self.params = params
         self._prefix_cache = (prefix_cache if prefix_cache is not None
                               else env_on("RAY_TPU_PREFIX_CACHE"))
@@ -144,7 +247,8 @@ class LLMEngine:
         self._rope = rope_frequencies(cfg.head_dim, self._maxp * page_size,
                                       cfg.rope_theta, device=self.device)
         # Decode tails [B, kvh, K, hd] per layer, allocated once and reused:
-        # rows a window has not written yet are masked, and stay finite.
+        # rows a window has not written yet are masked, and stay finite.  A
+        # smaller live window uses the first K columns.
         tshape = (max_batch, cfg.n_kv_heads, self.steps_per_sync,
                   cfg.head_dim)
         self._tails = {kk: [torch.zeros(tshape, dtype=cfg.dtype,
@@ -154,15 +258,74 @@ class LLMEngine:
         self._seed_key = int(_mix32(torch.tensor(seed + 1)).item())
         self._vocab_ids = torch.arange(cfg.vocab_size, device=self.device)
 
-        # Slot state.  Current tokens live ON DEVICE between windows.
+        # Multi-LoRA banks: static [L, slots+1, din, r] / [L, slots+1, r,
+        # dout] per target, written in place (load_adapter) so a captured
+        # window reads the new rows.  Slot 0 stays all zeros.
+        self.lora_slots = max(0, int(lora_slots))
+        self.lora_rank = int(lora_rank) if self.lora_slots else 0
+        if self.lora_slots:
+            if self.lora_rank < 1:
+                raise ValueError(
+                    "lora_slots > 0 requires lora_rank >= 1 (bank "
+                    "shapes are static)")
+            dims = llama.lora_target_dims(cfg)
+            tgts = tuple(lora_targets or llama.LORA_TARGETS)
+            bad = [t for t in tgts if t not in dims]
+            if bad:
+                raise ValueError(
+                    f"unknown lora targets {bad}; valid: {sorted(dims)}")
+            ns = self.lora_slots + 1
+
+            def zeros(*shape):
+                return torch.zeros(shape, dtype=cfg.dtype,
+                                   device=self.device)
+
+            self._lora_banks = {
+                t: {"a": zeros(cfg.n_layers, ns, dims[t][0], self.lora_rank),
+                    "b": zeros(cfg.n_layers, ns, self.lora_rank, dims[t][1])}
+                for t in tgts}
+            self._lora_free = list(range(1, ns))
+        else:
+            self._lora_banks = None
+            self._lora_free = []
+        # model_id -> bank slot + metadata, the per-lane slot the window
+        # gathers with, and the ONE lock over eviction choice, map updates
+        # and admission-time resolution.
+        self._lora_lock = threading.Lock()
+        self._lora_map: dict[str, int] = {}
+        self._lora_meta: dict[str, dict] = {}
+        self._adapters = np.zeros((max_batch,), np.int32)
+        self.adapter_loads = 0
+        self.adapter_evictions = 0
+
+        # Slot state.  The window's inputs and outputs are persistent
+        # device tensors, written in place between windows.
         self._slots: list[_Request | None] = [None] * max_batch
-        self._cur = torch.zeros((max_batch,), dtype=torch.int32,
-                                device=self.device)
         self._temps = np.zeros((max_batch,), np.float32)
         self._seeds = np.zeros((max_batch,), np.int32)
-        self._table_dev = torch.zeros((max_batch, self._maxp),
-                                      dtype=torch.int32, device=self.device)
+
+        def dev_zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        self._cur = dev_zeros((max_batch,), torch.int32)
+        self._table_dev = dev_zeros((max_batch, self._maxp), torch.int32)
+        self._temps_dev = dev_zeros((max_batch,), torch.float32)
+        self._seeds_dev = dev_zeros((max_batch,), torch.int32)
+        self._starts_dev = dev_zeros((max_batch,), torch.int32)
+        self._lanes_dev = dev_zeros((max_batch,), torch.int32)
         self._table_dirty = True
+        # Captured windows by size K, the side stream they are warmed up
+        # and captured on, and the lock that orders window dispatch against
+        # bank writes from caller threads.
+        self._graphs: dict[int, _WindowGraph] = {}
+        self._side_stream = None
+        self._dispatch_lock = threading.Lock()
+        self.decode_windows = 0
+        # Compiled-window counterpart of the reference: the live window
+        # size (set_sync_window) and how often it was shrunk.
+        self._k_live = self.steps_per_sync
+        self.sync_window_shrinks = 0
+
         # Admission order: preempted requests re-enter at the FRONT.
         self._pending: collections.deque[_Request] = collections.deque()
         self._waiting: queue.Queue[_Request] = queue.Queue()
@@ -180,15 +343,60 @@ class LLMEngine:
         self.preemptions = 0
         self.prefill_tokens = 0
         self.decode_tokens = 0
+        self.kv_exports = 0
+        self.kv_imports = 0
+        # Export side thread (started at the first export or demotion):
+        # device -> host copies finish there, never on the loop.
+        self._export_q: queue.Queue | None = None
+        self._export_thread: threading.Thread | None = None
+        # Live weight sync: update_weights stages a tree; the loop copies
+        # it into the resident tensors between windows.
+        self._weights_lock = threading.Lock()
+        self._staged_weights: tuple | None = None   # (version, tree, t)
+        self._staged_version = 0
+        self.weight_version = 0
+        self.weight_updates = 0
+        self.weight_syncs_skipped = 0
+        self.last_weight_sync_ms = 0.0
+        # Prefix-cache generation, bumped (and the radix tree flushed) at
+        # every weight swap.
+        self._cache_gen = 0
+        # Tier-2 prefix store: demotion callback, knobs and bookkeeping
+        # (no-ops until set_prefix_store installs a callback), and queued
+        # grafts.
+        self._demote_cb = None
+        self._demote_knobs: dict = {}
+        self._demote_lock = threading.Lock()
+        self._demote_inflight = 0
+        self._demote_t = 0.0
+        self._demote_skip: set[int] = set()
+        self._graft_q: queue.Queue = queue.Queue()
+        self.kv_grafts = 0
+        self.graft_tokens = 0
+        self.demote_published = 0
+        self.demote_failures = 0
 
     # ------------------------------------------------------------- public
     def submit(self, prompt: list[int], max_new_tokens: int = 32,
                temperature: float = 0.0, eos_id: int | None = None,
                token_queue: "queue.Queue | None" = None,
+               _cache_ok: bool = True, prefill_only: bool = False,
+               model_id: str | None = None,
                ) -> concurrent.futures.Future:
         """Thread-safe; resolves to {tokens, ttft_s, total_s}.  With
         `token_queue`, every decoded token is also pushed as produced
-        (None = end)."""
+        (None = end).  With `prefill_only`, the result also carries
+        `kv_export` = {kv, len, page, sample_seed, tokens}: the request's
+        KV pages as one CPU tensor [2, L, n, kvh, page, hd] covering its
+        first `len` positions, which kv_import() on another engine
+        resumes from.  With `model_id`, the request decodes under that
+        LoRA adapter (resident by admission time, or the future fails
+        with AdapterLoadError) and its KV keys on the adapter's salt."""
+        if model_id is not None and self._lora_banks is None:
+            raise AdapterLoadError(
+                "engine has no adapter slots (set lora_slots)",
+                model_id=model_id, deployment=self.name,
+                reason="lora_slots=0")
         if len(prompt) >= self.max_len:
             raise ValueError(
                 f"prompt length {len(prompt)} >= max_len {self.max_len}")
@@ -215,7 +423,9 @@ class LLMEngine:
         try:
             req = _Request(list(prompt), max_new_tokens, temperature,
                            eos_id, concurrent.futures.Future(),
-                           token_queue=token_queue, sample_seed=seed)
+                           token_queue=token_queue, sample_seed=seed,
+                           cache_ok=_cache_ok, prefill_only=prefill_only,
+                           model_id=model_id)
             self._waiting.put(req)
             self._wake.set()
         finally:
@@ -224,12 +434,390 @@ class LLMEngine:
         return req.future
 
     def generate(self, prompt: list[int], max_new_tokens: int = 32,
-                 temperature: float = 0.0,
-                 eos_id: int | None = None) -> dict:
+                 temperature: float = 0.0, eos_id: int | None = None,
+                 _cache_ok: bool = True) -> dict:
         """Blocking convenience wrapper."""
         self.start()
-        return self.submit(prompt, max_new_tokens, temperature,
-                           eos_id).result()
+        return self.submit(prompt, max_new_tokens, temperature, eos_id,
+                           _cache_ok=_cache_ok).result()
+
+    def kv_import(self, prompt: list[int], tokens: list[int], kv,
+                  *, kv_len: int, max_new_tokens: int = 32,
+                  temperature: float = 0.0, eos_id: int | None = None,
+                  sample_seed: int = 0,
+                  token_queue: "queue.Queue | None" = None,
+                  ) -> concurrent.futures.Future:
+        """Resume a request whose prefill ran on ANOTHER engine (this
+        port's or the reference's): `kv` is its `kv_export` array ([2, L,
+        n, kvh, page, hd], numpy or tensor) covering the first `kv_len`
+        positions of prompt+tokens.  The pages are scattered into fresh
+        pool blocks at admission; decode continues from tokens[-1] as if
+        prefill had run here.  With matching engine seeds and the
+        exporter's `sample_seed` the continued sample stream is the one
+        an uninterrupted run draws.  The result's `tokens` include the
+        ones passed in."""
+        if not tokens:
+            raise ValueError("kv_import needs at least the first "
+                             "generated token")
+        if len(tokens) > max_new_tokens:
+            raise ValueError(
+                f"already have {len(tokens)} generated tokens but "
+                f"max_new_tokens is {max_new_tokens}")
+        if kv_len != len(prompt) + len(tokens) - 1:
+            raise ValueError(
+                f"kv_len {kv_len} != prompt+tokens-1 "
+                f"({len(prompt) + len(tokens) - 1}): exported KV must "
+                "cover every position but the newest token's")
+        kv = as_tensor(kv)
+        n_imp = -(-kv_len // self.page)
+        want = (2, self.cfg.n_layers, n_imp, self.cfg.n_kv_heads,
+                self.page, self.cfg.head_dim)
+        if tuple(kv.shape) != want:
+            raise ValueError(
+                f"kv shape {tuple(kv.shape)} does not match this engine "
+                f"(expected {want}: page_size/config mismatch between "
+                "prefill and decode pools?)")
+        if len(prompt) + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_len {self.max_len}")
+        need = -(-(len(prompt) + max_new_tokens) // self.page)
+        if need > self.n_pages - 1:
+            raise ValueError(
+                f"request needs {need} KV pages but the pool holds "
+                f"{self.n_pages - 1}; raise kv_pages")
+        if self._error is not None:
+            raise RuntimeError(
+                "LLM engine is dead after an earlier failure") \
+                from self._error
+        req = _Request(list(prompt), max_new_tokens, temperature,
+                       eos_id, concurrent.futures.Future(),
+                       token_queue=token_queue, sample_seed=sample_seed,
+                       tokens=list(tokens), import_kv=kv,
+                       import_len=kv_len)
+        self._waiting.put(req)
+        self._wake.set()
+        return req.future
+
+    def set_prefix_store(self, publish_cb, *, min_idle: int = 256,
+                         period_s: float = 0.25,
+                         watermark_frac: float = 0.125,
+                         limit: int = 2, max_inflight: int = 2) -> None:
+        """Install (or, with None, remove) the tier-2 prefix-store
+        demotion hook.  `publish_cb(entry)` runs on the export thread with
+        the demoted subtree's host KV ({tokens, kv, hashes, depth, page,
+        weight_version, salt}; kv a CPU tensor [2, L, depth, kvh, page,
+        hd]) and returns True once tier 2 holds it; only then is the
+        tier-1 leaf evicted.  A leaf demotes after `min_idle` LRU-clock
+        ticks of disuse, or at once when the free pool falls under
+        `watermark_frac`; at most `limit` leaves per `period_s` scan and
+        `max_inflight` unfinished demotions."""
+        self._demote_cb = publish_cb
+        self._demote_knobs = dict(
+            min_idle=max(0, int(min_idle)),
+            period_s=max(0.01, float(period_s)),
+            watermark=int(max(0.0, float(watermark_frac))
+                          * (self.n_pages - 1)),
+            limit=max(1, int(limit)),
+            max_inflight=max(1, int(max_inflight)))
+        with self._demote_lock:
+            self._demote_skip.clear()
+
+    def kv_graft(self, tokens: list[int], kv, *, kv_len: int,
+                 weight_version: int | None = None, salt: int = 0,
+                 ) -> concurrent.futures.Future:
+        """Graft a stored prefix's KV into this engine's pool: scatter `kv`
+        ([2, L, n, kvh, page, hd], numpy or tensor) into fresh blocks and
+        commit them into the radix tree under `tokens`, so the next
+        matching request hits tier 1.  Full blocks only (kv_len a page
+        multiple covering all of `tokens`).  Applied on the loop between
+        windows; resolves to {"grafted": n_blocks, "tokens"} or
+        {"grafted": 0, "reason"}.  A `weight_version` other than the
+        engine's at application time never grafts.  `salt` keys the
+        radix entry per (adapter, version); 0 = base model."""
+        if kv_len <= 0 or kv_len % self.page != 0:
+            raise ValueError(
+                f"kv_len {kv_len} must be a positive multiple of the "
+                f"page size {self.page} (the radix tree is "
+                "block-granular)")
+        if len(tokens) != kv_len:
+            raise ValueError(
+                f"tokens ({len(tokens)}) must cover exactly kv_len "
+                f"({kv_len}) positions")
+        kv = as_tensor(kv)
+        n = kv_len // self.page
+        want = (2, self.cfg.n_layers, n, self.cfg.n_kv_heads,
+                self.page, self.cfg.head_dim)
+        if tuple(kv.shape) != want:
+            raise ValueError(
+                f"kv shape {tuple(kv.shape)} does not match this engine "
+                f"(expected {want}: page_size/config mismatch?)")
+        if n > self.n_pages - 1:
+            raise ValueError(
+                f"graft needs {n} KV pages but the pool holds "
+                f"{self.n_pages - 1}")
+        if self._error is not None:
+            raise RuntimeError(
+                "LLM engine is dead after an earlier failure") \
+                from self._error
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._graft_q.put((list(tokens), kv, n, weight_version, int(salt),
+                           fut))
+        self._wake.set()
+        return fut
+
+    # ---------------------------------------------------------- multi-LoRA
+    def load_adapter(self, model_id: str, adapter: dict, *,
+                     version: int = 1) -> int:
+        """Make an adapter device-resident: validate it against this
+        engine's config, pick a bank slot (free list, else the least
+        recently used slot no in-flight lane decodes with) and write its
+        [L, din, r] / [L, r, dout] stacks into the slot's bank rows, zero
+        padded to the bank rank.  Runs on the caller's thread; the writes
+        are ordered against window dispatch by the dispatch lock and land
+        in a slot no lane reads.  Re-loading a resident (model_id,
+        version) is a no-op; a new version overwrites in place under a
+        new KV salt.  Raises AdapterLoadError when the weights do not fit
+        or no slot can be freed."""
+        if self._lora_banks is None:
+            raise AdapterLoadError(
+                "engine has no adapter slots (set lora_slots)",
+                model_id=model_id, deployment=self.name,
+                reason="lora_slots=0")
+        targets = (adapter or {}).get("targets") or {}
+        dims = llama.lora_target_dims(self.cfg)
+        rank = 0
+        for t, ab in targets.items():
+            if t not in self._lora_banks:
+                raise AdapterLoadError(
+                    f"adapter targets {t!r} but this engine banks "
+                    f"{sorted(self._lora_banks)}", model_id=model_id,
+                    deployment=self.name, reason="bad_target")
+            a, b = ab["a"], ab["b"]
+            din, dout = dims[t]
+            if (a.ndim != 3 or b.ndim != 3
+                    or a.shape[0] != self.cfg.n_layers
+                    or a.shape[1] != din or b.shape[2] != dout
+                    or a.shape[2] != b.shape[1]):
+                raise AdapterLoadError(
+                    f"adapter target {t!r} shapes {tuple(a.shape)}/"
+                    f"{tuple(b.shape)} do not fit this engine (want "
+                    f"[L={self.cfg.n_layers}, {din}, r] / [L, r, {dout}])",
+                    model_id=model_id, deployment=self.name,
+                    reason="bad_shape")
+            rank = max(rank, a.shape[2])
+        if rank < 1:
+            raise AdapterLoadError(
+                "adapter has no targets", model_id=model_id,
+                deployment=self.name, reason="empty")
+        if rank > self.lora_rank:
+            raise AdapterLoadError(
+                f"adapter rank {rank} exceeds the engine's static bank "
+                f"rank {self.lora_rank} (lora_rank)",
+                model_id=model_id, deployment=self.name,
+                reason="rank_overflow")
+        with self._lora_lock:
+            cur = self._lora_map.get(model_id)
+            if cur is not None \
+                    and self._lora_meta[model_id]["version"] == version:
+                self._lora_meta[model_id]["last_used"] = time.monotonic()
+                return cur
+            if cur is not None:
+                slot = cur                      # re-upload in place
+            elif self._lora_free:
+                slot = self._lora_free.pop(0)
+            else:
+                in_use = {int(s) for s in self._adapters if s}
+                cands = [(self._lora_meta[mid]["last_used"], mid)
+                         for mid, s in self._lora_map.items()
+                         if s not in in_use]
+                if not cands:
+                    raise AdapterLoadError(
+                        "every adapter slot has an in-flight request",
+                        model_id=model_id, deployment=self.name,
+                        reason="no_free_slot")
+                _, victim = min(cands)
+                slot = self._lora_map.pop(victim)
+                del self._lora_meta[victim]
+                self.adapter_evictions += 1
+            with self._dispatch_lock, torch.no_grad():
+                for t, bank in self._lora_banks.items():
+                    bank["a"][:, slot].zero_()
+                    bank["b"][:, slot].zero_()
+                    ab = targets.get(t)
+                    if ab is not None:      # absent target: no delta
+                        a, b = as_tensor(ab["a"]), as_tensor(ab["b"])
+                        r = a.shape[2]
+                        bank["a"][:, slot, :, :r].copy_(a)
+                        bank["b"][:, slot, :r].copy_(b)
+            self._lora_map[model_id] = slot
+            self._lora_meta[model_id] = {
+                "version": int(version),
+                "salt": lora_mod.adapter_salt(model_id, version),
+                "rank": rank, "last_used": time.monotonic()}
+            self.adapter_loads += 1
+            return slot
+
+    def adapter_resident(self, model_id: str,
+                         version: int | None = None) -> bool:
+        """True when the adapter (at `version`, if given) holds a bank
+        slot."""
+        with self._lora_lock:
+            meta = self._lora_meta.get(model_id)
+            return (meta is not None
+                    and (version is None or meta["version"] == version))
+
+    def adapter_touch(self, model_id: str) -> None:
+        """Stamp an adapter's LRU clock (eviction ranks by traffic, not by
+        load time)."""
+        with self._lora_lock:
+            meta = self._lora_meta.get(model_id)
+            if meta is not None:
+                meta["last_used"] = time.monotonic()
+
+    def adapter_salt_of(self, model_id: str | None) -> int:
+        """KV salt of a resident adapter (0 = base / not resident)."""
+        if model_id is None or self._lora_banks is None:
+            return 0
+        with self._lora_lock:
+            meta = self._lora_meta.get(model_id)
+            return meta["salt"] if meta else 0
+
+    def _resolve_adapter(self, req: _Request, lane: int) -> bool:
+        """Admission-time model_id -> bank slot (loop thread).  Marks the
+        lane under the lora lock before any block work, so a concurrent
+        load_adapter cannot evict the slot this admission decodes with.
+        A missing adapter fails the one request with AdapterLoadError."""
+        with self._lora_lock:
+            slot = self._lora_map.get(req.model_id)
+            if slot is not None:
+                meta = self._lora_meta[req.model_id]
+                req.lora_slot = slot
+                req.salt = meta["salt"]
+                meta["last_used"] = time.monotonic()
+                self._adapters[lane] = slot
+                return True
+        req.emit(None)
+        if not req.future.done():
+            req.future.set_exception(AdapterLoadError(
+                "adapter not resident at admission",
+                model_id=req.model_id, deployment=self.name,
+                reason="not_resident"))
+        return False
+
+    def _lora_args(self, idx: torch.Tensor) -> dict | None:
+        """The model functions' `lora` argument: None without banks."""
+        if self._lora_banks is None:
+            return None
+        return {"idx": idx, "banks": self._lora_banks}
+
+    # ------------------------------------------------------ weight sync
+    def update_weights(self, refs, version: int | None = None) -> int:
+        """Stage a new param tree for live weight sync (online RLHF): the
+        loop copies it into the resident tensors between decode windows,
+        never mid-window and without draining a request, so the captured
+        windows decode with it from the next window on.  `refs` is the
+        param tree itself (numpy arrays or tensors, any dtype: leaves are
+        cast to the resident dtype); its structure and leaf shapes are
+        validated here, on the caller's thread.  The ObjectRef forms of
+        the reference wait for the port's object plane.
+
+        The swap flushes the radix prefix cache and gates pending commits
+        behind a new generation: cached KV belongs to the old policy.
+        Thread-safe; the latest staged version wins.  Returns the staged
+        version.  RAY_TPU_RL_WEIGHT_SYNC=0 (read per call) drops the
+        update and returns the current version.  An engine built with
+        share_params=True raises ValueError: other engines decode with
+        the same tensors."""
+        if self._shared_params:
+            raise ValueError(
+                "update_weights: this engine was built with "
+                "share_params=True; its weights are read-only")
+        if not env_on("RAY_TPU_RL_WEIGHT_SYNC"):
+            with self._weights_lock:
+                self.weight_syncs_skipped += 1
+                return self.weight_version
+        new, cur = _leaves(refs), _leaves(self.params)
+        if [p for p, _ in new] != [p for p, _ in cur]:
+            raise ValueError(
+                "update_weights: param tree structure does not match the "
+                f"engine's ({[p for p, _ in new]} vs {[p for p, _ in cur]})")
+        for (path, a), (_, b) in zip(new, cur):
+            if tuple(getattr(a, "shape", ())) != tuple(b.shape):
+                raise ValueError(
+                    f"update_weights: leaf {path} shape "
+                    f"{tuple(getattr(a, 'shape', ()))} != resident "
+                    f"{tuple(b.shape)} (wrong model config?)")
+        with self._weights_lock:
+            if version is None:
+                version = max(self.weight_version,
+                              self._staged_version) + 1
+            self._staged_weights = (version, refs, time.perf_counter())
+            self._staged_version = version
+        self._wake.set()
+        return version
+
+    def _maybe_swap_weights(self) -> None:
+        """Loop half of update_weights: copy the newest staged tree into
+        the resident tensors (the ones every captured window reads)."""
+        with self._weights_lock:
+            staged, self._staged_weights = self._staged_weights, None
+        if staged is None:
+            return
+        version, tree, staged_t = staged
+        with self._weights_lock, torch.no_grad():
+            for (_, new), (_, old) in zip(_leaves(tree),
+                                          _leaves(self.params)):
+                old.copy_(as_tensor(new))
+            self.weight_version = version
+        self.weight_updates += 1
+        self._cache_gen += 1
+        self._mgr.flush()
+        with self._demote_lock:
+            self._demote_skip.clear()
+        self.last_weight_sync_ms = (time.perf_counter() - staged_t) * 1e3
+
+    def params_snapshot(self):
+        """Consistent (params, weight_version) pair for trajectory
+        scoring: a copy of the resident tree, taken under the weights lock
+        that the swap holds, so a later swap never changes it and it is
+        never labelled with another tree's version.  Costs one copy of
+        the weights in device memory."""
+        with self._weights_lock:
+            return _tree_map(torch.clone, self.params), self.weight_version
+
+    # ------------------------------------------------------------ controls
+    def warmup(self, buckets: list[int] | None = None) -> None:
+        """Run one prefill per prompt bucket, then one request long enough
+        for a decode window of the configured size, so the first real
+        request meets no first-use cost (on CUDA: the kernels' load and
+        the default window's graph).  Warmup traffic bypasses the prefix
+        cache (_cache_ok=False)."""
+        cap = min(self.max_len - 1, (self.n_pages - 1) * self.page - 1)
+        for b in buckets or self._buckets:
+            n = min(b, cap)
+            if n >= 1:
+                self.generate(list(range(1, n + 1)), max_new_tokens=1,
+                              _cache_ok=False)
+        new = min(self.steps_per_sync + 1, cap - 1)
+        if new >= 2:
+            self.generate([1], max_new_tokens=new, _cache_ok=False)
+
+    def set_sync_window(self, k: int | None) -> int:
+        """Set the live decode window size (overload degradation: smaller
+        windows admit and check eos more often).  None restores
+        steps_per_sync; sizes clamp to [1, steps_per_sync].  Takes effect
+        at the next window; each size is captured once on CUDA.  Token
+        streams do not change with it: sampling keys on the request's
+        generation index."""
+        k = self.steps_per_sync if not k \
+            else max(1, min(int(k), self.steps_per_sync))
+        if k != self._k_live:
+            if k < self.steps_per_sync:
+                self.sync_window_shrinks += 1
+            self._k_live = k
+            self._wake.set()
+        return k
 
     def start(self) -> None:
         if self._thread is None or not self._thread.is_alive():
@@ -243,14 +831,25 @@ class LLMEngine:
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=60.0)
+        if self._export_thread is not None:
+            # Sentinel after the loop stopped: pending exports drain in
+            # order, then the thread exits.
+            self._export_q.put(None)
+            self._export_thread.join(timeout=60.0)
+            self._export_thread = None
+            self._export_q = None
+
+    def abort_pending(self, exc: BaseException) -> None:
+        """Fail every queued and in-flight request and queued graft (call
+        after stop(): the loop must not race the slot table)."""
+        self._drain_requests(exc)
 
     # ----------------------------------------------------------- sampling
-    def _sample_rows(self, logits, temps, seeds, gidx, any_temp: bool):
+    def _sample_rows(self, logits, temps, seeds, gidx):
         """Per-row sampling: row b draws from hash(engine, seeds[b],
-        gidx[b]) -- the stream belongs to the request, not the batch."""
+        gidx[b]) -- the stream belongs to the request, not the batch.
+        Greedy rows (temperature 0) take the argmax."""
         greedy = logits.argmax(dim=-1).to(torch.int32)
-        if not any_temp:
-            return greedy
         h = _mix32((seeds.long() + self._seed_key) & _M32)
         h = _mix32((h + gidx.long()) & _M32)
         h = _mix32((h[:, None] + self._vocab_ids[None, :]) & _M32)
@@ -263,69 +862,123 @@ class LLMEngine:
     def _first_token(self, last_h, temps, seeds, starts):
         logits = (last_h @ self.params["lm_head"]).float()
         return self._sample_rows(logits, self._dev(temps), self._dev(seeds),
-                                 self._dev(starts), bool(temps.any()))
+                                 self._dev(starts))
 
-    def _dev(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device without a sync: staged through pinned
-        memory on CUDA, so uploads queue behind the device work."""
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+    def _staged(self, arr) -> torch.Tensor:
+        """Host array or tensor as the source of a copy that does not
+        sync: pinned when a host array goes to CUDA, so the copy queues
+        behind the device work."""
+        t = torch.from_numpy(arr) if isinstance(arr, np.ndarray) else arr
+        if self.device.type == "cuda" and not t.is_cuda:
+            return t.pin_memory()
         return t
 
+    def _dev(self, arr) -> torch.Tensor:
+        """Host array or CPU tensor -> a device tensor, without a sync."""
+        return self._staged(arr).to(self.device, non_blocking=True)
+
+    def _upload(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+        """Copy a host array into a persistent device tensor of the same
+        dtype, in place and without a sync."""
+        dst.copy_(self._staged(arr), non_blocking=True)
+
     # -------------------------------------------------------------- decode
-    def _decode_window(self, active: list[int]):
-        """K decode steps for the active slots; pages stay read-only during
-        the window, new rows ride the tails and merge into the pages once
-        at the end.  Returns the [K, B] token block on the device without
-        waiting for it: nothing here reads a device value on the host."""
-        cfg, K = self.cfg, self.steps_per_sync
-        if self._table_dirty:
-            self._table_dev = self._dev(self._table)
-            self._table_dirty = False
+    def _decode_window(self, active: list[int], k_win: int | None = None):
+        """K decode steps for the active slots (K = the live window size
+        unless given); pages stay read-only during the window, new rows
+        ride the tails and merge into the pages once at the end.  Returns
+        the [K, B] token block on the device without waiting for it:
+        nothing here reads a device value on the host.  On CUDA the
+        window is a replay of its captured graph after its first use."""
+        K = k_win or self._k_live
         starts = np.zeros((self.max_batch,), np.int32)
         for i in active:
             starts[i] = len(self._slots[i].tokens)
+        with self._dispatch_lock:
+            if self._table_dirty:
+                self._upload(self._table_dev, self._table)
+                self._table_dirty = False
+            self._upload(self._temps_dev, self._temps)
+            self._upload(self._seeds_dev, self._seeds)
+            self._upload(self._starts_dev, starts)
+            if self._lora_banks is not None:
+                self._upload(self._lanes_dev, self._adapters)
+            self.decode_windows += 1
+            if self.device.type != "cuda":
+                seq = torch.empty((K, self.max_batch), dtype=torch.int32)
+                self._window_body(K, seq)
+                return seq
+            g = self._graphs.get(K)
+            if g is None:
+                g = self._graphs[K] = self._capture(K)
+            else:
+                g.graph.replay()
+                g.replays += 1
+                counters.credit(g.launches)
+            return g.seq
+
+    def _window_body(self, K: int, seq: torch.Tensor):
+        """The window itself, on persistent tensors only: reads the
+        uploaded inputs, writes the token block into `seq` and the new
+        pos and current tokens in place.  Everything it allocates is
+        dead when it returns (a captured graph's private pool)."""
+        cfg = self.cfg
         ts = self.cache["pos"]
         pages = {"k": self.cache["k"], "v": self.cache["v"]}
-        tails = self._tails
-        temps = self._dev(self._temps)
-        seeds = self._dev(self._seeds)
-        starts_d = self._dev(starts)
-        any_temp = bool(self._temps.any())
-        table = self._table_dev
-        seq = torch.empty((K, self.max_batch), dtype=torch.int32,
-                          device=self.device)
+        lora = self._lora_args(self._lanes_dev)
         pos, toks = ts, self._cur
         for j in range(K):
             logits, _ = llama.decode_step_paged(
-                self.params, pages, tails, toks, pos, ts, j, table, cfg,
-                rope=self._rope)
-            toks = self._sample_rows(logits, temps, seeds, starts_d + j,
-                                     any_temp)
+                self.params, pages, self._tails, toks, pos, ts, j,
+                self._table_dev, cfg, lora=lora, rope=self._rope)
+            toks = self._sample_rows(logits, self._temps_dev,
+                                     self._seeds_dev, self._starts_dev + j)
             seq[j] = toks
             pos = pos + 1
         for li in range(cfg.n_layers):
-            merge_tail_pages(pages["k"][li], tails["k"][li], table, ts, K)
-            merge_tail_pages(pages["v"][li], tails["v"][li], table, ts, K)
-        self.cache["pos"] = pos
-        self._cur = toks
-        return seq
+            for kk in ("k", "v"):
+                merge_tail_pages(pages[kk][li], self._tails[kk][li],
+                                 self._table_dev, ts, K)
+        ts.copy_(pos)
+        self._cur.copy_(toks)
+
+    def _capture(self, K: int) -> _WindowGraph:
+        """First window of its size on CUDA: run it eagerly on the side
+        stream (its result is this window's; it also creates the cuBLAS
+        workspaces the capture needs), then capture the same body once.
+        The capture runs nothing, so the launches it records are held
+        back (this thread's only) and credited on every replay instead."""
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        side = self._side_stream
+        seq = torch.empty((K, self.max_batch), dtype=torch.int32,
+                          device=self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._window_body(K, seq)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with counters.deferred() as launches, torch.cuda.graph(
+                graph, stream=side, capture_error_mode="thread_local"):
+            self._window_body(K, seq)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return _WindowGraph(graph, seq, launches, time.perf_counter() - t0)
 
     # ----------------------------------------------------------- admission
     def _reserve_blocks(self, req: _Request,
                         copies: list[tuple[int, int]]) -> bool:
-        """Match the longest cached prefix, then allocate enough fresh
-        blocks to cover the prompt plus one decode window (the full span
-        when preemption is off).  Returns False with no net state change
-        when the pool can't cover it."""
+        """Match the longest cached prefix (none for imports and warmup),
+        then allocate enough fresh blocks to cover the prompt plus one
+        decode window (the full span when preemption is off).  Returns
+        False with no net state change when the pool can't cover it."""
         mgr = self._mgr
         seq = req.prompt + req.tokens       # resume includes generated
         total = len(seq)
         remaining = req.max_new_tokens - len(req.tokens)
-        matched = mgr.match(seq)
+        matched = mgr.match(seq, salt=req.salt) \
+            if (req.cache_ok and req.import_kv is None) else []
         matched_tokens = len(matched) * self.page
-        cover = total + (min(remaining, self.steps_per_sync)
+        cover = total + (min(remaining, self._k_live)
                          if self._preempt_on else remaining)
         need = max(0, -(-cover // self.page) - len(matched))
         fresh = mgr.allocate(need)
@@ -353,7 +1006,8 @@ class LLMEngine:
 
     def _admit(self) -> None:
         """Prefill a whole wave of waiting requests; one fetch per chunk
-        brings their first tokens to the host."""
+        brings their first tokens to the host.  Imported requests scatter
+        their pages instead of prefilling."""
         while True:        # drain arrivals behind any preempted requests
             try:
                 self._pending.append(self._waiting.get_nowait())
@@ -395,18 +1049,39 @@ class LLMEngine:
                     break
                 continue
             req = self._pending[0]
+            if req.model_id is not None \
+                    and not self._resolve_adapter(req, free):
+                # Unknown or evicted adapter: fail this request and keep
+                # admitting -- never a head-of-line barrier.
+                self._pending.popleft()
+                continue
             # The block pool is the admission control: the FRONT request
             # blocks FIFO when free + evictable can't cover it.
             if not self._reserve_blocks(req, copies):
+                if req.lora_slot:
+                    with self._lora_lock:      # not decoding after all
+                        self._adapters[free] = 0
                 break
             self._table[free, :] = 0
             self._table[free, :len(req.pages)] = req.pages
             self._table_dirty = True
             self._pending.popleft()
+            req.slot = free
+            req.cache_gen = self._cache_gen
             self._slots[free] = req
             self._temps[free] = req.temperature
             self._seeds[free] = req.sample_seed
             wave.append((free, req))
+        if not wave:
+            return
+        imports = [(s, r) for s, r in wave if r.import_kv is not None]
+        wave = [(s, r) for s, r in wave if r.import_kv is None]
+        for slot, req in imports:
+            self._apply_import(slot, req)
+            if req.first_token_at is None:
+                req.first_token_at = time.perf_counter()
+            if self._done(req):
+                self._finish(slot)
         if not wave:
             return
         if copies:
@@ -449,7 +1124,8 @@ class LLMEngine:
              "slots": np.zeros((padded_w,), np.int32),
              "temps": np.zeros((padded_w,), np.float32),
              "seeds": np.zeros((padded_w,), np.int32),
-             "starts": np.zeros((padded_w,), np.int32)}
+             "starts": np.zeros((padded_w,), np.int32),
+             "lidx": np.zeros((padded_w,), np.int32)}
         for j in range(padded_w):
             slot, req = chunk[min(j, W - 1)]
             seq = req.prompt + req.tokens
@@ -462,6 +1138,7 @@ class LLMEngine:
             a["temps"][j] = req.temperature
             a["seeds"][j] = req.sample_seed
             a["starts"][j] = len(req.tokens)
+            a["lidx"][j] = req.lora_slot
         for _, req in chunk:
             self.prefill_tokens += (len(req.prompt) + len(req.tokens)
                                     - req.prefill_from)
@@ -472,7 +1149,8 @@ class LLMEngine:
         a, W, bucket = self._wave_arrays(
             chunk, [len(r.prompt) + len(r.tokens) for _, r in chunk])
         hidden, ks, vs = llama.prefill(self.params, self._dev(a["tokens"]),
-                                       self.cfg)
+                                       self.cfg,
+                                       self._lora_args(self._dev(a["lidx"])))
         rows_idx = self._dev(a["last"].astype(np.int64))
         last_h = hidden[torch.arange(W, device=self.device), rows_idx]
         nxt = self._first_token(last_h, a["temps"], a["seeds"], a["starts"])
@@ -497,7 +1175,7 @@ class LLMEngine:
         hidden, ks, vs = llama.prefill_with_prefix(
             self.params, self._dev(a["tokens"]), self._dev(a["pos0"]),
             self.cfg, self.cache["k"], self.cache["v"],
-            self._dev(table_rows))
+            self._dev(table_rows), self._lora_args(self._dev(a["lidx"])))
         rows_idx = self._dev(a["last"].astype(np.int64))
         last_h = hidden[torch.arange(W, device=self.device), rows_idx]
         nxt = self._first_token(last_h, a["temps"], a["seeds"], a["starts"])
@@ -512,6 +1190,244 @@ class LLMEngine:
         self._cur[slots] = nxt
         return nxt
 
+    # ------------------------------------------------------ page transfer
+    def _padded_ids(self, ids: list[int]) -> torch.Tensor:
+        """Block ids padded to a power of two with the trash page 0."""
+        return self._dev(np.asarray(
+            list(ids) + [0] * (_pow2(len(ids)) - len(ids)), np.int64))
+
+    def _gather_kv(self, ids: list[int]) -> torch.Tensor:
+        """[2, L, m, kvh, page, hd] device copy of the listed blocks (m
+        the padded width)."""
+        idx = self._padded_ids(ids)
+        return torch.stack([torch.stack([leaf[idx] for leaf in self.cache[kk]])
+                            for kk in ("k", "v")])
+
+    def _scatter_kv(self, kv: torch.Tensor, ids: list[int]) -> None:
+        """Write a [2, L, n, kvh, page, hd] host KV array into blocks
+        `ids` (n of them) of the pool."""
+        n = len(ids)
+        m = _pow2(n)
+        if m > n:           # pad rows land on the trash page
+            kv = torch.cat([kv, kv.new_zeros(kv.shape[:2] + (m - n,)
+                                             + kv.shape[3:])], dim=2)
+        src = self._dev(kv.contiguous()).to(self.cfg.dtype)
+        idx = self._padded_ids(ids)
+        for ki, kk in enumerate(("k", "v")):
+            for li, leaf in enumerate(self.cache[kk]):
+                leaf[idx] = src[ki, li]
+
+    def _to_host(self, arr: torch.Tensor, n: int):
+        """Start the device -> host copy of arr[:, :, :n]; returns (host
+        tensor, CUDA event or None) for the export thread to wait on."""
+        part = arr[:, :, :n]
+        if not arr.is_cuda:
+            return part.clone(), None
+        host = torch.empty(part.shape, dtype=part.dtype, pin_memory=True)
+        host.copy_(part, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    @staticmethod
+    def _host_result(host: torch.Tensor, ev) -> torch.Tensor:
+        """Export thread: wait for the copy, hand back pageable memory."""
+        if ev is None:
+            return host
+        ev.synchronize()
+        return host.clone()
+
+    def _apply_import(self, slot: int, req: _Request) -> None:
+        """Scatter a migrated request's KV pages into its freshly
+        reserved blocks and seed the slot's pos and current token; the
+        payload is dropped right after."""
+        n_imp = -(-req.import_len // self.page)
+        self._scatter_kv(req.import_kv, req.pages[:n_imp])
+        self.cache["pos"][slot] = req.import_len
+        self._cur[slot] = req.tokens[-1]
+        req.import_kv = None
+        self.kv_imports += 1
+
+    def _finish_export(self, slot: int, req: _Request) -> None:
+        """Finish a prefill_only request: pin the covered blocks, dispatch
+        the gather and the device -> host copy, release the slot, and
+        hand the wait to the export thread.  Every error path drops the
+        export pins and the request's own blocks."""
+        ids = None
+        try:
+            kv_len = len(req.prompt) + len(req.tokens) - 1
+            ids = self._mgr.export_blocks(req.pages, kv_len)
+            host, ev = self._to_host(self._gather_kv(ids), len(ids))
+        except Exception as e:  # noqa: BLE001 - fail this request only
+            if ids is not None:
+                self._mgr.release(ids)
+            self._release_slot(slot, req)
+            req.emit(None)
+            if not req.future.done():
+                req.future.set_exception(e)
+            return
+        self._release_slot(slot, req)
+        self._ensure_export_thread().put(
+            ("export", req, host, ev, ids, kv_len))
+
+    def _ensure_export_thread(self) -> queue.Queue:
+        if self._export_q is None:
+            self._export_q = queue.Queue()
+            self._export_thread = threading.Thread(
+                target=self._export_loop, name="llm-kv-export",
+                daemon=True)
+            self._export_thread.start()
+        return self._export_q
+
+    def _export_loop(self) -> None:
+        """Waits on device -> host copies off the loop: KV exports and
+        prefix-store demotions."""
+        while True:
+            item = self._export_q.get()
+            if item is None:
+                return
+            if item[0] == "demote":
+                self._demote_one(*item[1:])
+            else:
+                self._export_one(*item[1:])
+
+    def _export_one(self, req, host, ev, ids, kv_len: int) -> None:
+        """One kv_export: the [2, L, n, kvh, page, hd] host array covers
+        every position whose KV is written (the newest token's is not:
+        the importer computes it in its first decode step); resolves the
+        future and drops the export pins."""
+        try:
+            kv = self._host_result(host, ev)
+        except Exception as e:  # noqa: BLE001 - fail this request only
+            self._mgr.release(ids)
+            req.emit(None)
+            if not req.future.done():
+                req.future.set_exception(e)
+            return
+        self._mgr.release(ids)
+        self.kv_exports += 1
+        now = time.perf_counter()
+        req.emit(None)
+        if not req.future.done():
+            req.future.set_result({
+                "tokens": req.tokens,
+                "ttft_s": (req.first_token_at or now) - req.submitted_at,
+                "total_s": now - req.submitted_at,
+                "kv_export": {"kv": kv, "len": kv_len, "page": self.page,
+                              "sample_seed": req.sample_seed,
+                              "tokens": list(req.tokens)}})
+
+    # -------------------------------------------------------- prefix store
+    def _apply_grafts(self) -> None:
+        """Loop half of kv_graft: allocate, scatter, commit, release.  A
+        failed graft fails its own future only."""
+        while True:
+            try:
+                tokens, kv, n, wv, salt, fut = self._graft_q.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                if not self._prefix_cache:
+                    out = {"grafted": 0, "reason": "no_prefix_cache"}
+                elif wv is not None and wv != self.weight_version:
+                    # KV from another policy version: never grafted.
+                    out = {"grafted": 0, "reason": "stale_version"}
+                else:
+                    blocks = self._mgr.allocate(n)
+                    if blocks is None:
+                        out = {"grafted": 0, "reason": "no_blocks"}
+                    else:
+                        try:
+                            self._scatter_kv(kv, blocks)
+                        except Exception:
+                            self._mgr.release(blocks)
+                            raise
+                        # Commit before release: the blocks become cached
+                        # and evictable instead of free.
+                        self._mgr.commit(tokens, blocks, salt=salt)
+                        self._mgr.release(blocks)
+                        self.kv_grafts += 1
+                        self.graft_tokens += n * self.page
+                        out = {"grafted": n, "tokens": n * self.page}
+            except Exception as e:  # noqa: BLE001 - fail this graft only
+                if not fut.done():
+                    fut.set_exception(e)
+                continue
+            if not fut.done():
+                fut.set_result(out)
+
+    def _maybe_demote(self) -> None:
+        """Loop-side demotion scan: pick cold refcount-0 radix leaves,
+        dispatch one gather per candidate covering its whole path, and
+        hand the host copy and the publish to the export thread.
+        Throttled by period and in-flight cap; RAY_TPU_PREFIX_STORE is
+        read per scan."""
+        cb = self._demote_cb
+        if cb is None or not self._prefix_cache:
+            return
+        knobs = self._demote_knobs
+        now = time.monotonic()
+        if now - self._demote_t < knobs["period_s"]:
+            return
+        self._demote_t = now
+        with self._demote_lock:
+            if self._demote_inflight >= knobs["max_inflight"]:
+                return
+            budget = knobs["max_inflight"] - self._demote_inflight
+            exclude = set(self._demote_skip)
+        if not prefix_store_on():
+            return
+        cands = self._mgr.demote_scan(
+            limit=min(knobs["limit"], budget), min_idle=knobs["min_idle"],
+            watermark=knobs["watermark"], exclude=exclude)
+        if not cands:
+            return
+        q = self._ensure_export_thread()
+        gen, wv = self._cache_gen, self.weight_version
+        for c in cands:
+            try:
+                host, ev = self._to_host(self._gather_kv(c["blocks"]),
+                                         c["depth"])
+            except Exception:  # noqa: BLE001 - keep the leaf in tier 1
+                self.demote_failures += 1
+                self._mgr.demote_finish(c["leaf"], c["blocks"], drop=False)
+                continue
+            with self._demote_lock:
+                self._demote_inflight += 1
+            q.put(("demote", c, host, ev, gen, wv))
+
+    def _demote_one(self, c: dict, host, ev, gen: int, wv: int) -> None:
+        """Export-thread half of one demotion: wait for the host KV,
+        publish it, then finish the manager's accounting (pins released
+        either way; the tier-1 leaf drops only when tier 2 holds the
+        entry and no weight swap invalidated it meanwhile)."""
+        published = False
+        try:
+            kv = self._host_result(host, ev)
+        except Exception:  # noqa: BLE001 - device fault: keep tier 1
+            self.demote_failures += 1
+            kv = None
+        if kv is not None and gen == self._cache_gen:
+            try:
+                published = bool(self._demote_cb(dict(
+                    tokens=c["tokens"], kv=kv, hashes=c["hashes"],
+                    depth=c["depth"], page=self.page, weight_version=wv,
+                    salt=c.get("salt", 0))))
+            except Exception:  # noqa: BLE001 - a failing store
+                self.demote_failures += 1
+            if not published:
+                with self._demote_lock:
+                    self._demote_skip.add(c["hash"])
+                    if len(self._demote_skip) > 4096:
+                        self._demote_skip.clear()
+        self._mgr.demote_finish(c["leaf"], c["blocks"],
+                                drop=published and gen == self._cache_gen)
+        if published:
+            self.demote_published += 1
+        with self._demote_lock:
+            self._demote_inflight -= 1
+        self._wake.set()
+
     # -------------------------------------------------------------- finish
     def _done(self, req: _Request) -> bool:
         return (len(req.tokens) >= req.max_new_tokens
@@ -520,13 +1436,16 @@ class LLMEngine:
 
     def _release_slot(self, slot: int, req: _Request) -> None:
         """Commit the request's computed full blocks into the prefix
-        cache, then drop its references.  KV is valid only below
+        cache (unless it is warmup traffic or predates a weight swap),
+        then drop its references.  KV is valid only below
         prompt+tokens-1 (the newest token's K/V is not written yet)."""
         if not req.pages:
             return
         kv_valid = len(req.prompt) + len(req.tokens) - 1
-        self._mgr.commit(req.prompt + req.tokens,
-                         req.pages[:kv_valid // self.page])
+        if req.cache_ok and req.cache_gen == self._cache_gen:
+            self._mgr.commit(req.prompt + req.tokens,
+                             req.pages[:kv_valid // self.page],
+                             salt=req.salt)
         self._mgr.release(req.pages)
         req.pages = []
         # The freed slot's garbage decode writes go to the trash page once
@@ -537,7 +1456,14 @@ class LLMEngine:
     def _finish(self, slot: int) -> None:
         req = self._slots[slot]
         self._slots[slot] = None
+        self._adapters[slot] = 0      # the lane's adapter is evictable
         self.completed += 1
+        if req.prefill_only and req.pages and not (
+                req.eos_id is not None and req.tokens[-1] == req.eos_id):
+            # Export path; an eos-terminated request has nothing to
+            # migrate and finishes plainly.
+            self._finish_export(slot, req)
+            return
         self._release_slot(slot, req)
         now = time.perf_counter()
         req.emit(None)
@@ -555,15 +1481,21 @@ class LLMEngine:
         self._slots[slot] = None
         self._temps[slot] = 0.0
         self._seeds[slot] = 0
+        self._adapters[slot] = 0
         self._release_slot(slot, req)
+        req.slot = -1
+        req.preempted += 1
         self.preemptions += 1
         self._pending.appendleft(req)
 
-    def _ensure_decode_blocks(self) -> list[int]:
+    def _ensure_decode_blocks(self, k_win: int | None = None) -> list[int]:
         """Fund every active slot's next window of merge positions, oldest
         request first; when the pool runs dry the NEWEST active request
-        is preempted.  Returns the surviving active slots."""
-        k_win = self.steps_per_sync
+        is preempted.  `k_win` is the loop's snapshot of the window size
+        (funding and the window must agree).  Returns the surviving
+        active slots."""
+        if k_win is None:
+            k_win = self._k_live
         active = [i for i, s in enumerate(self._slots) if s is not None]
         for slot in sorted(active,
                            key=lambda i: self._slots[i].sample_seed):
@@ -596,7 +1528,8 @@ class LLMEngine:
     # ---------------------------------------------------------------- loop
     def _loop(self) -> None:
         try:
-            self._loop_inner()
+            with torch.no_grad():      # params may come from a trainer
+                self._loop_inner()
         except BaseException as e:  # noqa: BLE001
             # Fail every in-flight and waiting request instead of letting
             # their futures hang, then re-raise.
@@ -606,6 +1539,13 @@ class LLMEngine:
             raise
 
     def _drain_requests(self, exc: BaseException) -> None:
+        while True:
+            try:
+                *_rest, fut = self._graft_q.get_nowait()
+            except queue.Empty:
+                break
+            if not fut.done():
+                fut.set_exception(exc)
         doomed = list(self._pending) + [r for r in self._slots if r]
         self._pending.clear()
         self._slots = [None] * self.max_batch
@@ -621,13 +1561,20 @@ class LLMEngine:
 
     def _loop_inner(self) -> None:
         while not self._stop.is_set():
+            # The reference's order: swap weights, apply grafts (the
+            # version check sees the tree a commit lands in), admit, fund
+            # blocks, demote, decode.
+            self._maybe_swap_weights()
+            self._apply_grafts()
             self._admit()
-            active = self._ensure_decode_blocks()
+            k_win = self._k_live
+            active = self._ensure_decode_blocks(k_win)
+            self._maybe_demote()
             if not active:
                 self._wake.wait(timeout=0.002 if self._pending else 0.05)
                 self._wake.clear()
                 continue
-            seq = self._decode_window(active).cpu().numpy()   # ONE sync
+            seq = self._decode_window(active, k_win).cpu().numpy()  # 1 sync
             for i in active:
                 req = self._slots[i]
                 if req is None:
@@ -648,22 +1595,67 @@ class LLMEngine:
         return {"ok": True, "free": self._mgr.free_count(),
                 "available": self._mgr.available()}
 
+    @property
+    def graph_replays(self) -> int:
+        return sum(g.replays for g in list(self._graphs.values()))
+
+    def graph_stats(self) -> dict:
+        """Per captured window size "K=<k>": replays, capture seconds and
+        the kernel launches one replay counts."""
+        return {f"K={k}": {
+                    "replays": g.replays, "capture_s": g.capture_s,
+                    "launches_per_replay": {
+                        fn.__name__ + (f"/{r}" if r else ""): n
+                        for (fn, r), n in g.launches.items()}}
+                for k, g in list(self._graphs.items())}
+
     def stats(self) -> dict:
         kv = self._mgr.stats()
-        return {"completed": self.completed,
-                "active": sum(s is not None for s in self._slots),
-                "waiting": self._waiting.qsize() + len(self._pending),
-                "max_batch": self.max_batch,
-                "max_len": self.max_len,
-                "preemptions": self.preemptions,
-                "prefill_tokens": self.prefill_tokens,
-                "decode_tokens": self.decode_tokens,
-                "prefix_cache": self._prefix_cache,
-                "kv_preempt": self._preempt_on,
-                "sync_window": self.steps_per_sync,
-                "kv": kv,
-                "prefix_hits": kv["hits"],
-                "prefix_misses": kv["misses"],
-                "prefix_hit_tokens": kv["hit_tokens"],
-                "evictions": kv["evictions"],
-                "cow_copies": kv["cow_copies"]}
+        out = {"completed": self.completed,
+               "active": sum(s is not None for s in self._slots),
+               "waiting": self._waiting.qsize() + len(self._pending),
+               "max_batch": self.max_batch,
+               "max_len": self.max_len,
+               "preemptions": self.preemptions,
+               "prefill_tokens": self.prefill_tokens,
+               "decode_tokens": self.decode_tokens,
+               "prefix_cache": self._prefix_cache,
+               "kv_preempt": self._preempt_on,
+               "kv_exports": self.kv_exports,
+               "kv_imports": self.kv_imports,
+               "kv_grafts": self.kv_grafts,
+               "graft_tokens": self.graft_tokens,
+               "demote_published": self.demote_published,
+               "demote_failures": self.demote_failures,
+               "weight_version": self.weight_version,
+               "weight_updates": self.weight_updates,
+               "weight_syncs_skipped": self.weight_syncs_skipped,
+               "last_weight_sync_ms": round(self.last_weight_sync_ms, 3),
+               "adapter_loads": self.adapter_loads,
+               "adapter_evictions": self.adapter_evictions,
+               "sync_window": self._k_live,
+               "sync_window_shrinks": self.sync_window_shrinks,
+               "decode_windows": self.decode_windows,
+               "graph_replays": self.graph_replays,
+               "graph_captures": len(self._graphs),
+               "graph_capture_s": sum(g.capture_s
+                                      for g in list(self._graphs.values())),
+               "kv": kv,
+               "prefix_hits": kv["hits"],
+               "prefix_misses": kv["misses"],
+               "prefix_hit_tokens": kv["hit_tokens"],
+               "evictions": kv["evictions"],
+               "cow_copies": kv["cow_copies"]}
+        if self._lora_banks is not None:
+            with self._lora_lock:
+                now = time.monotonic()
+                out["lora"] = {
+                    "slots": self.lora_slots, "rank": self.lora_rank,
+                    "free": len(self._lora_free),
+                    "loads": self.adapter_loads,
+                    "evictions": self.adapter_evictions,
+                    "resident": {
+                        mid: {"salt": m["salt"], "version": m["version"],
+                              "age": round(now - m["last_used"], 3)}
+                        for mid, m in self._lora_meta.items()}}
+        return out

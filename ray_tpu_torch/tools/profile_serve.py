@@ -5,11 +5,13 @@
 Serves `llama3-8b` (bf16, random seeded weights, engine defaults) the
 same eight-request wave as chip_smoke.py's serve phase (prompts of
 300-1000 tokens, 64 new tokens each) under torch.profiler, after one
-untraced warm-up request, and prints one JSON line: the wall time of the
-traced window, the device time summed over every kernel, the device busy
-share (device time / wall time; one stream, so kernels do not overlap),
-and the device time and launch count per kernel group and for the top
-kernels.  Needs one CUDA card.
+untraced warm-up request that also captures the default decode window's
+CUDA graph, so every traced window is a graph replay.  Prints one JSON
+line: the wave's TTFT and decode tokens/s, the wall time of the traced
+window, the device time summed over every kernel, the device busy share
+(device time / wall time; one stream, so kernels do not overlap), the
+device time and launch count per kernel group and for the top kernels,
+and the engine's graph replays and capture time.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -62,6 +64,47 @@ def kernel_groups(prof) -> tuple[dict, dict]:
     return kernels, groups
 
 
+def wave_decode_rate(res) -> float:
+    """Decode tokens/s of a wave submitted together: the tokens after
+    each request's first, over the time from the last first token to the
+    last finish."""
+    decode_s = max(r["total_s"] for r in res) - max(r["ttft_s"] for r in res)
+    return sum(len(r["tokens"]) - 1 for r in res) / decode_s
+
+
+def trace_wave(eng, prompts, max_new_tokens: int = 64) -> dict:
+    """Serve `prompts` as one wave on a started engine under
+    torch.profiler; the wave's latencies and the trace's device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    s0 = eng.stats()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, max_new_tokens=max_new_tokens)
+                for p in prompts]
+        res = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    s1 = eng.stats()
+    kernels, groups = kernel_groups(prof)
+    device_ms = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    ttft = [r["ttft_s"] for r in res]
+    return {
+        "requests": len(res), "new_tokens_each": max_new_tokens,
+        "prompt_tokens": [len(p) for p in prompts],
+        "ttft_s": {"min": min(ttft), "max": max(ttft)},
+        "decode_tokens_per_s": wave_decode_rate(res),
+        "traced_wall_ms": wall_ms, "device_kernel_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms if device_ms else None,
+        "graph_replays": s1["graph_replays"] - s0["graph_replays"],
+        "decode_windows": s1["decode_windows"] - s0["decode_windows"],
+        "groups": {g: {"ms": ms, "launches": n}
+                   for g, (ms, n) in sorted(groups.items())},
+        "top_kernels": [{"name": n[:120], "ms": ms, "launches": c}
+                        for n, (ms, c) in top]}
+
+
 def main() -> None:
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.serve.llm import LLMEngine
@@ -84,29 +127,14 @@ def main() -> None:
         eng.generate(rng.integers(1, cfg.vocab_size, size=300).tolist(),
                      max_new_tokens=8)
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            futs = [eng.submit(p, max_new_tokens=64) for p in prompts]
-            res = [f.result(timeout=600) for f in futs]
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        row = trace_wave(eng, prompts)
+        st = eng.stats()
     finally:
         eng.stop()
-    kernels, groups = kernel_groups(prof)
-    device_ms = sum(ms for ms, _ in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     print(json.dumps({
-        "card": card, "model": "llama3-8b", "dtype": "bfloat16",
-        "requests": len(res), "new_tokens_each": 64,
-        "prompt_tokens": PROMPTS, "traced_wall_ms": wall_ms,
-        "device_kernel_ms": device_ms,
-        "device_busy_share": device_ms / wall_ms if device_ms else None,
-        "groups": {g: {"ms": ms, "launches": n}
-                   for g, (ms, n) in sorted(groups.items())},
-        "top_kernels": [{"name": n[:120], "ms": ms, "launches": c}
-                        for n, (ms, c) in top]}))
+        "card": card, "model": "llama3-8b", "dtype": "bfloat16", **row,
+        "graph_capture_s": st["graph_capture_s"],
+        "graphs": eng.graph_stats()}))
 
 
 if __name__ == "__main__":

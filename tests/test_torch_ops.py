@@ -252,3 +252,34 @@ def test_kernel_build_is_keyed_by_sources_and_flags(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels._nvcc()
+
+
+def test_launch_counts_defer_per_thread_and_credit():
+    """Counts made inside `deferred()` on this thread go to its Counter,
+    not to the wrapper; another thread's count lands at once; `credit`
+    adds the Counter per replay."""
+    import threading
+
+    from ray_tpu_torch.ops import counters
+
+    def fn():
+        pass
+
+    fn.launches = 0
+    fn.launches_by_route = {"wgmma": 0, "fma": 0}
+    counters.count(fn, "fma")
+    with counters.deferred() as rec:
+        counters.count(fn, "wgmma")
+        counters.count(fn, "wgmma")
+        t = threading.Thread(target=counters.count, args=(fn, "fma"))
+        t.start()
+        t.join()
+    assert fn.launches == 2 and fn.launches_by_route == {"wgmma": 0,
+                                                         "fma": 2}
+    assert rec == {(fn, None): 2, (fn, "wgmma"): 2}
+    counters.credit(rec)
+    counters.credit(rec)
+    assert fn.launches == 6 and fn.launches_by_route == {"wgmma": 4,
+                                                         "fma": 2}
+    counters.count(fn)                    # outside the block: counted
+    assert fn.launches == 7
