@@ -60,6 +60,28 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  bump, radix tree flushed, graphs still replaying, the
                  same tokens; a sharing engine refuses one).  Counters
                  zeroed before, read after, as in 4.
+  4c. serve_8b_server -- `LLMServer`, the serve deployment body, on the
+                 same model and weights at the engine's defaults (max_batch
+                 8, page 512, K 8), with no runtime (a process outside any
+                 cluster).  (a) Unified: eight concurrent `__call__`s
+                 (asyncio.gather) must give the greedy tokens of a bare
+                 engine on the same params and seed, and a `stream` the
+                 tokens of its `__call__`; each wave is queued while the
+                 engine loop is stopped and admitted when it restarts, so
+                 both engines prefill it as one wave (bf16 tokens depend
+                 on the prefill's shapes).  A second pair of waves on fresh
+                 prompts, sent as they come, gives tokens/s and TTFT
+                 through the server against the bare engine.  (c) A
+                 `reconfigure` to K 4 rebuilds the engine and serves a
+                 bare K-4 engine's tokens; after `shutdown`, `kv_check`
+                 passes.  (b) PD, built after (a) is freed: a prefill-role
+                 server and a decode-role server linked by an in-process
+                 handle (`serve/runtime.LocalHandle`) serve (a)'s eight
+                 requests with (a)'s tokens and eight migrations; a
+                 handle whose `kv_decode` raises gives a "full_reprefill"
+                 fallback.  Counters zeroed before, read after (a) and
+                 (b): both kernels launched, the forward on its bf16
+                 route only, every counted window a replay.
   5. train_small_f32 -- three `make_train_step` steps of `debug` in f32
                  (TF32 off) at seq 100, batch 2, from the same params and
                  batch on CUDA (kernels) and on the CPU (plain versions),
@@ -86,6 +108,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import gc
 import json
@@ -924,6 +947,258 @@ def phase_serve_8b_engine(card, cfg, params):
     return launches
 
 
+def server_wave(srv, reqs, hold=False):
+    """`srv(r)` for every request at once (asyncio.gather); (results,
+    seconds).  With `hold`, the requests are queued while the server's
+    engine loop is stopped and admitted as one wave when it restarts."""
+    async def go():
+        eng = srv.engine
+        if hold:
+            eng.stop()
+        tasks = [asyncio.ensure_future(srv(r)) for r in reqs]
+        if hold:
+            deadline = time.monotonic() + 120
+            while eng._waiting.qsize() < len(reqs):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the held wave never queued")
+                await asyncio.sleep(0.001)
+            eng.start()
+        return await asyncio.gather(*tasks)
+
+    t0 = time.perf_counter()
+    res = asyncio.run(asyncio.wait_for(go(), 600))
+    return res, time.perf_counter() - t0
+
+
+def engine_wave(eng, prompts, new, hold=False):
+    """The bare engine's counterpart of server_wave."""
+    if hold:
+        eng.stop()
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    if hold:
+        eng.start()
+    res = [f.result(timeout=600) for f in futs]
+    return res, time.perf_counter() - t0
+
+
+class KvDecodeDown:
+    """Decode-pool handle whose `kv_decode` raises (a decode replica lost
+    mid-migration); its other methods go to `local`."""
+
+    def __init__(self, local, method_name="__call__"):
+        self._local, self._method = local, method_name
+
+    def options(self, *, method_name="__call__"):
+        return KvDecodeDown(self._local, method_name)
+
+    def remote(self, *args, **kwargs):
+        if self._method == "kv_decode":
+            raise RuntimeError("decode replica lost")
+        return self._local.options(method_name=self._method).remote(
+            *args, **kwargs)
+
+
+def launch_counts() -> dict:
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    out = {n: c for n, c in flash_counts().items()
+           if n.startswith("flash_attention_fwd")}
+    out["paged_decode_attention"] = paged_decode_attention.launches
+    return out
+
+
+def zero_serve_counts() -> None:
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    zero_flash_counts()
+    paged_decode_attention.launches = 0
+
+
+def wave_row(res, wave_s) -> dict:
+    from ray_tpu_torch.tools.profile_serve import wave_decode_rate
+
+    ttft = [r["ttft_s"] for r in res]
+    return {"wave_s": wave_s,
+            "tokens_per_s": sum(len(r["tokens"]) for r in res) / wave_s,
+            "decode_tokens_per_s": wave_decode_rate(res),
+            "ttft_s": {"min": min(ttft), "max": max(ttft)}}
+
+
+def phase_serve_8b_server(card, cfg, params, device="cuda"):
+    """LLMServer on `cfg` in bf16 with `params` (see 4c in the module
+    docstring)."""
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+    from ray_tpu_torch.serve.runtime import LocalHandle
+
+    V, new = cfg.vocab_size, 64
+    rng = np.random.default_rng(SEED + 16)
+    prompts = [rng.integers(1, V, size=n).tolist() for n in MAIN_PROMPTS]
+    fresh = [rng.integers(1, V, size=n).tolist() for n in MAIN_PROMPTS]
+    warm = rng.integers(1, V, size=300).tolist()
+    reqs = [{"prompt": p, "max_new_tokens": new} for p in prompts]
+    knobs = dict(seed=SEED, max_batch=8, page_size=512)
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+
+    def call(srv, req):
+        return asyncio.run(asyncio.wait_for(srv(req), 600))
+
+    # (a) unified, against a bare engine on the caller's tree.
+    srv = LLMServer(cfg, params=params, device=device, **knobs)
+    bare = LLMEngine(cfg, params, share_params=True, device=device,
+                     name="bare", **knobs)
+    K = srv.engine.steps_per_sync
+    bare.start()
+    try:
+        call(srv, {"prompt": warm, "max_new_tokens": K + 1})
+        bare.generate(warm, max_new_tokens=K + 1)
+        torch.cuda.synchronize()
+        zero_serve_counts()
+        s0 = srv.stats()
+        held, _ = server_wave(srv, reqs, hold=True)
+        # Alone after the wave: the stream and its call both hit the
+        # wave's cached prefix of prompts[0].
+        one = {"prompt": prompts[0], "max_new_tokens": new}
+        streamed = list(srv.stream(one))
+        called = call(srv, one)["tokens"]
+        torch.cuda.synchronize()
+        launches_a = launch_counts()
+        s1 = srv.stats()
+        bare_held, _ = engine_wave(bare, prompts, new, hold=True)
+        srv_t, srv_s = server_wave(
+            srv, [{"prompt": p, "max_new_tokens": new} for p in fresh])
+        bare_t, bare_s = engine_wave(bare, fresh, new)
+        bare.stop()
+        del bare
+        # (c) reconfigure: K 4 rebuilds the engine.
+        old = srv.engine
+        srv.reconfigure({"steps_per_sync": 4})
+        rebuilt = (srv.engine is not old and srv.engine.steps_per_sync == 4
+                   and not old._thread.is_alive())
+        del old
+        gc.collect()
+        torch.cuda.empty_cache()
+        k4 = LLMEngine(cfg, params, share_params=True, device=device,
+                       name="k4", steps_per_sync=4, **knobs)
+        k4.start()
+        try:
+            after = call(srv, {"prompt": prompts[1],
+                               "max_new_tokens": new})["tokens"]
+            want_k4 = k4.generate(prompts[1], max_new_tokens=new)["tokens"]
+        finally:
+            k4.stop()
+        st_c = srv.stats()
+    finally:
+        srv.shutdown()
+    check_c = srv.kv_check()
+    del srv, k4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) PD: a prefill-role and a decode-role server, each with its own
+    # copy of the weights, linked by an in-process handle.
+    dec = LLMServer(cfg, params=params, device=device, role="decode",
+                    **knobs)
+    local = LocalHandle(dec)
+    pre = LLMServer(cfg, params=params, device=device, role="prefill",
+                    decode_deployment=local, **knobs)
+    try:
+        call(pre, {"prompt": warm, "max_new_tokens": K + 1})
+        torch.cuda.synchronize()
+        zero_serve_counts()
+        p0, d0 = pre.stats(), dec.stats()
+        pd_res, pd_s = server_wave(pre, reqs, hold=True)
+        torch.cuda.synchronize()
+        launches_b = launch_counts()
+        p1, d1 = pre.stats(), dec.stats()
+        pre.reconfigure({"decode_deployment": KvDecodeDown(local)})
+        fb = call(pre, {"prompt": prompts[2], "max_new_tokens": 8})
+        fb_stats = pre.stats()["pd"]
+        checks_b = (pre.kv_check(), dec.kv_check())
+    finally:
+        pre.shutdown()
+        dec.shutdown()
+        local.close()
+    del pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    a_tokens = [r["tokens"] for r in held]
+    migrations = p1["pd"]["migrations"] - p0["pd"]["migrations"]
+    pd_bytes = p1["pd"]["kv_migrate_bytes"] - p0["pd"]["kv_migrate_bytes"]
+    replays_a = s1["graph_replays"] - s0["graph_replays"]
+    windows_a = s1["decode_windows"] - s0["decode_windows"]
+    replays_b = d1["graph_replays"] - d0["graph_replays"]
+    windows_b = d1["decode_windows"] - d0["decode_windows"]
+    row = {"phase": "serve_8b_server", "card": card, "model": "llama3-8b",
+           "dtype": "bfloat16", "max_batch": 8, "page_size": 512,
+           "steps_per_sync": K, "prompt_tokens": MAIN_PROMPTS,
+           "new_tokens_each": new,
+           "unified": {
+               "same_tokens_as_bare_engine":
+                   a_tokens == [r["tokens"] for r in bare_held],
+               "stream_equals_call": streamed == called,
+               "stream_tokens": len(streamed),
+               "server": wave_row(srv_t, srv_s),
+               "bare_engine": wave_row(bare_t, bare_s),
+               "held_wave_server_ttft_s": [r["ttft_s"] for r in held],
+               "decode_windows": windows_a, "graph_replays": replays_a,
+               "launches": launches_a},
+           "reconfigure": {
+               "rebuilt": rebuilt, "sync_window": st_c["sync_window"],
+               "same_tokens_as_bare_k4": after == want_k4,
+               "same_tokens_as_k8_wave": after == a_tokens[1],
+               "kv_check_after_shutdown": check_c},
+           "pd": {
+               "same_tokens_as_unified": [r["tokens"] for r in pd_res]
+                   == a_tokens,
+               "migrations": migrations, "requests": len(reqs),
+               "wave": wave_row(pd_res, pd_s),
+               "kv_migrate_bytes": pd_bytes,
+               "kv_migrate_bytes_per_request": pd_bytes / max(1, migrations),
+               "kv_migrate_put_ms": p1["pd"]["kv_migrate_put_ms"]
+                   - p0["pd"]["kv_migrate_put_ms"],
+               "kv_pull_ms": d1["pd"]["kv_pull_ms"] - d0["pd"]["kv_pull_ms"],
+               "kv_pull_bytes": d1["pd"]["kv_pull_bytes"]
+                   - d0["pd"]["kv_pull_bytes"],
+               "total_s": [r["total_s"] for r in pd_res],
+               "fallback": fb.get("pd_fallback"),
+               "fallback_tokens": len(fb["tokens"]),
+               "fallbacks": fb_stats["fallbacks"],
+               "decode_windows": windows_b, "graph_replays": replays_b,
+               "kv_check": list(checks_b),
+               "launches": launches_b},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    u, c, pd = row["unified"], row["reconfigure"], row["pd"]
+    if not (u["same_tokens_as_bare_engine"] and u["stream_equals_call"]
+            and u["stream_tokens"] == new
+            and all(len(t) == new for t in a_tokens)):
+        raise AssertionError(f"serve_8b_server: unified tokens: {u}")
+    if not (c["rebuilt"] and c["sync_window"] == 4
+            and c["same_tokens_as_bare_k4"]):
+        raise AssertionError(f"serve_8b_server: reconfigure: {c}")
+    if not (pd["same_tokens_as_unified"] and migrations == len(reqs)
+            and pd["kv_pull_bytes"] == pd_bytes > 0
+            and pd["fallback"] == "full_reprefill"
+            and pd["fallback_tokens"] == 8 and pd["fallbacks"] == 1):
+        raise AssertionError(f"serve_8b_server: PD: {pd}")
+    for name, launches, replays, windows in (
+            ("unified", launches_a, replays_a, windows_a),
+            ("pd", launches_b, replays_b, windows_b)):
+        if launches["paged_decode_attention"] == 0 \
+                or launches["flash_attention_fwd/wgmma"] == 0 \
+                or launches["flash_attention_fwd/wgmma"] \
+                != launches["flash_attention_fwd"] \
+                or replays == 0 or replays != windows \
+                or launches["paged_decode_attention"] != replays * L * K:
+            raise AssertionError(
+                f"serve_8b_server {name}: windows {windows}, replays "
+                f"{replays}, launches {launches}")
+    return {"unified": launches_a, "pd": launches_b}
+
+
 # --------------------------------------------- phase 5: small f32 training
 def flash_counts() -> dict:
     """Launches of each flash wrapper and, as "<wrapper>/<route>", of each
@@ -1194,6 +1469,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_8b_engine(card, cfg8, params8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    server = phase_serve_8b_server(card, cfg8, params8)
     del params8
     gc.collect()
     torch.cuda.empty_cache()
@@ -1255,6 +1533,10 @@ def main() -> int:
     # Launches on the other main path of each kernel, the paged kernel's
     # time at a long context, and the forward's at the training layer.
     long = paged["8b_long_context"]
+    for i in (0, 1):
+        name = kernels[i]["name"] + ("/wgmma" if i else "")
+        kernels[i]["launches_serve_8b_server"] = {
+            k: v[name] for k, v in server.items()}
     kernels[0].update({"ms_long_context": long["ms"],
                        "bound_ms_long_context": long["bound_ms"],
                        "plain_ms_long_context": long["plain_ms"]})

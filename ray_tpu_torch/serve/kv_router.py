@@ -1,6 +1,6 @@
-"""The host-side hashing helpers and kill switches the paged engine needs,
-copied from ray_tpu/serve/kv_router.py (the port imports nothing of
-ray_tpu).
+"""The host-side hashing helpers and kill switches the paged engine and the
+LLM server need, copied from ray_tpu/serve/kv_router.py (the port imports
+nothing of ray_tpu).
 
 The RAY_TPU_* switch names are kept, so one environment drives the
 reference engine and the port alike.
@@ -53,6 +53,32 @@ def chain_hash(parent: int, chunk) -> int:
     h.update(b"".join(int(t).to_bytes(8, "little", signed=True)
                       for t in chunk))
     return int.from_bytes(h.digest(), "little")
+
+
+def prompt_hashes(tokens, page: int, salt: int = 0) -> list[int]:
+    """Chained hashes of a prompt's full blocks.  A non-zero adapter
+    `salt` prefixes the first block's hashed tokens, as BlockManager keys
+    salted subtrees."""
+    n = len(tokens) // page
+    out, h = [], ROOT_HASH
+    for i in range(n):
+        chunk = tokens[i * page:(i + 1) * page]
+        if salt and i == 0:
+            chunk = (salt,) + tuple(chunk)
+        h = chain_hash(h, chunk)
+        out.append(h)
+    return out
+
+
+def matched_depth(hashes: list[int], cached: frozenset) -> int:
+    """Longest prefix (in blocks) of the chained `hashes` present in a
+    cached-hash set; chaining makes membership of h_i imply the path."""
+    depth = 0
+    for h in hashes:
+        if h not in cached:
+            break
+        depth += 1
+    return depth
 
 
 def summary_digest(hashes) -> int:

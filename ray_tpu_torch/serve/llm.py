@@ -53,13 +53,20 @@ prefix matching, RAY_TPU_KV_PREEMPT=0 restores full-span up-front
 allocation, RAY_TPU_RL_WEIGHT_SYNC=0 drops weight updates (read per
 call), RAY_TPU_PREFIX_STORE=0 stops demotion (read per scan).  Not
 ported yet (see ROADMAP.md): the dense engine, the metrics, tracing,
-memory-ledger and failpoint hooks, ObjectRef arguments of
-update_weights, capturing prefill, LLMServer.
+memory-ledger and failpoint hooks, capturing prefill.
+
+LLMServer, the serve deployment body, wraps one engine: the request path
+(__call__, stream), the PD pool roles, adapter page-in, the tier-2 prefix
+store client, the overload ladder and reconfigure.  Its runtime calls go
+through a ServeRuntime (serve/runtime.py); the ObjectRef forms of
+update_weights resolve there.
 """
 from __future__ import annotations
 
+import asyncio
 import collections
 import concurrent.futures
+import os
 import queue
 import threading
 import time
@@ -76,9 +83,14 @@ from ray_tpu_torch.ops import counters
 from ray_tpu_torch.ops.paged_attention import merge_tail_pages
 from ray_tpu_torch.ops.rope import rope_frequencies
 from ray_tpu_torch.serve import lora as lora_mod
+from ray_tpu_torch.serve import slo
 from ray_tpu_torch.serve.kv_blocks import BlockManager
-from ray_tpu_torch.serve.kv_router import env_on, prefix_store_on
+from ray_tpu_torch.serve.kv_router import (env_on, lora_on, pd_disagg_on,
+                                           prefix_store_on)
 from ray_tpu_torch.serve.lora import AdapterLoadError
+from ray_tpu_torch.serve.prefix_store import PrefixStoreClient
+from ray_tpu_torch.serve.runtime import ServeRuntime
+from ray_tpu_torch.serve.schema import ENGINE_CONFIG_KEYS, ENGINE_ROLES
 
 _M32 = 0xFFFFFFFF
 
@@ -90,6 +102,25 @@ def _buckets_for(max_len: int, smallest: int = 32) -> list[int]:
         b *= 2
     out.append(max_len)
     return out
+
+
+def _check_pool_role(role: str, decode_deployment) -> None:
+    """The pool-role combination rules, shared by LLMServer.__init__ and
+    reconfigure (ENGINE_ROLES is their source of truth)."""
+    if role not in ENGINE_ROLES:
+        raise ValueError(
+            f"engine role must be one of {list(ENGINE_ROLES)}, "
+            f"got {role!r}")
+    if role == "prefill" and decode_deployment is None:
+        raise ValueError(
+            "role='prefill' requires decode_deployment (the decode "
+            "pool this replica ships KV to) — a prefill pool with no "
+            "decode pool cannot serve")
+    if role != "prefill" and decode_deployment is not None:
+        raise ValueError(
+            f"decode_deployment only applies to role='prefill' (got "
+            f"role={role!r}) — a dangling decode target would "
+            "silently serve unified")
 
 
 def _pow2(n: int) -> int:
@@ -134,6 +165,7 @@ class _Request:
     future: concurrent.futures.Future
     submitted_at: float = field(default_factory=time.perf_counter)
     first_token_at: float | None = None
+    admitted_at: float = 0.0          # perf_counter at slot assignment
     tokens: list[int] = field(default_factory=list)
     slot: int = -1
     # Optional thread-safe sink for token streaming (None = end).
@@ -340,6 +372,8 @@ class LLMEngine:
         self._last_submit_t = 0.0
         self._next_seed = 0
         self.completed = 0
+        # Recent request latencies by stage (stats()["slo"]).
+        self._slo_window = slo.LatencyWindow()
         self.preemptions = 0
         self.prefill_tokens = 0
         self.decode_tokens = 0
@@ -1067,6 +1101,7 @@ class LLMEngine:
             self._table_dirty = True
             self._pending.popleft()
             req.slot = free
+            req.admitted_at = time.perf_counter()
             req.cache_gen = self._cache_gen
             self._slots[free] = req
             self._temps[free] = req.temperature
@@ -1267,6 +1302,7 @@ class LLMEngine:
                 req.future.set_exception(e)
             return
         self._release_slot(slot, req)
+        self._observe_done(req, time.perf_counter())
         self._ensure_export_thread().put(
             ("export", req, host, ev, ids, kv_len))
 
@@ -1466,6 +1502,7 @@ class LLMEngine:
             return
         self._release_slot(slot, req)
         now = time.perf_counter()
+        self._observe_done(req, now)
         req.emit(None)
         if not req.future.done():
             req.future.set_result({
@@ -1473,6 +1510,29 @@ class LLMEngine:
                 "ttft_s": (req.first_token_at or now) - req.submitted_at,
                 "total_s": now - req.submitted_at,
             })
+
+    def _observe_done(self, req: _Request, now: float) -> None:
+        """Record a finished request's stage latencies in the SLO window,
+        as the reference does (its Prometheus histograms are not ported).
+        A migrated request skips TTFT, queue and prefill (its first token
+        came from the exporting engine); a prefill-only export skips
+        decode."""
+        ft = req.first_token_at
+        if ft is None:
+            return
+        imported = req.import_len > 0
+        if not imported:
+            self._slo_window.observe(
+                "ttft_ms", (ft - req.submitted_at) * 1000.0)
+        if req.admitted_at:
+            if not imported:
+                self._slo_window.observe(
+                    "queue_ms",
+                    (req.admitted_at - req.submitted_at) * 1000.0)
+                self._slo_window.observe(
+                    "prefill_ms", (ft - req.admitted_at) * 1000.0)
+            if not req.prefill_only:
+                self._slo_window.observe("decode_ms", (now - ft) * 1000.0)
 
     def _preempt_slot(self, slot: int) -> None:
         """Evict a running request: its blocks go to the prefix cache and
@@ -1631,6 +1691,7 @@ class LLMEngine:
                "weight_updates": self.weight_updates,
                "weight_syncs_skipped": self.weight_syncs_skipped,
                "last_weight_sync_ms": round(self.last_weight_sync_ms, 3),
+               "slo": self._slo_window.snapshot(),
                "adapter_loads": self.adapter_loads,
                "adapter_evictions": self.adapter_evictions,
                "sync_window": self._k_live,
@@ -1659,3 +1720,686 @@ class LLMEngine:
                               "age": round(now - m["last_used"], 3)}
                         for mid, m in self._lora_meta.items()}}
         return out
+
+
+_DENSE_NOT_PORTED = (
+    "paged=False needs the dense engine, which the port does not have yet "
+    "(ROADMAP.md queue 1 item 2); serve with the paged engine")
+
+
+class LLMServer:
+    """Serve deployment body: one paged engine per replica (port of
+    ray_tpu/serve/llm.py's LLMServer).
+
+    Requests are dicts with a token-id "prompt" and the optional
+    "max_new_tokens", "temperature", "eos_id", "model_id", "disagg" and
+    "prefix_store" keys.  Engine memory knobs are operator-tunable through
+    `reconfigure` (serve/schema.py's ENGINE_CONFIG_KEYS), which rebuilds
+    the engine in place.  The engine runs on `device`: None means CUDA and
+    raises where there is none; tests pass "cpu".
+
+    **Pool roles.**  `role="prefill"` replicas run only the prompt pass
+    and hand the request's KV pages (put through the runtime) to the
+    `decode_deployment` pool's `kv_decode`, which imports them and runs
+    the decode phase.  `decode_deployment` is a handle (`.remote`,
+    `.options(method_name=...)`) or a deployment name the runtime
+    resolves.  Failures degrade, never fail the request: an export error
+    serves unified locally ("export_failed"); a decode-pool error re-runs
+    the whole request on the decode pool ("full_reprefill"), then locally
+    ("local").  Both pools should share the engine `seed`.  Kill switch
+    RAY_TPU_PD_DISAGG=0, or {"disagg": false} per request.
+
+    **Mixed pools run one way only.**  A JAX engine's f32 numpy export
+    imports into this `kv_decode`; the port's bf16 export cannot be read
+    by the reference's `kv_decode` (numpy has no bf16).
+
+    **Runtime seam.**  `runtime` (serve/runtime.py) carries every runtime
+    call: the KV put and pull, deployment-name resolution, the replica
+    context and the controller behind the adapter and prefix-store
+    clients.  None is ServeRuntime(), a process outside any cluster: no
+    replica context, a KV export passes to the decode handle as the tensor
+    itself, a decode deployment named by a string cannot be resolved (the
+    PD path falls back), and the adapter and prefix-store clients reach
+    only an in-process directory (`lora_directory`, `prefix_store`'s
+    "directory") or return their defaults.
+
+    Not ported: the dense engine (`paged=False` raises
+    NotImplementedError after the role checks), and the reference's engine
+    metrics, tracing spans, memory-ledger tags and failpoints
+    (serve.adapter_load and the spans of the adapter load, shed/restore
+    and KV put and pull); tests inject faults through fakes instead."""
+
+    # Adapter requests re-page and resubmit this many times in all when a
+    # concurrent tenant's load evicts their adapter between the page-in
+    # and admission; admission precedes the first token, so a resubmit is
+    # invisible to the client.
+    _LORA_ADMIT_RETRIES = 3
+
+    def __init__(self, model="debug", *, max_batch: int = 8,
+                 max_len: int | None = None, params=None, seed: int = 0,
+                 warmup: bool = False, paged: bool = True,
+                 page_size: int = 512, kv_pages: int | None = None,
+                 prefix_cache: bool | None = None,
+                 kv_preempt: bool | None = None,
+                 steps_per_sync: int = 8,
+                 role: str = "unified",
+                 decode_deployment=None,
+                 prefix_store: dict | None = None,
+                 lora_slots: int = 0, lora_rank: int = 0,
+                 lora_directory=None,
+                 runtime: ServeRuntime | None = None,
+                 device=None):
+        _check_pool_role(role, decode_deployment)
+        if role == "prefill" and not paged:
+            raise ValueError(
+                "role='prefill' requires a paged engine (KV migration "
+                "is page-granular)")
+        if not paged:
+            raise NotImplementedError(_DENSE_NOT_PORTED)
+        self._device = resolve_device(device, "LLMServer")
+        self._runtime = runtime or ServeRuntime()
+        cfg = llama.llama_configs()[model] if isinstance(model, str) \
+            else model
+        name = "llm"
+        self._app_name = None
+        ctx = self._runtime.replica_context()
+        if ctx is not None and ctx.deployment:
+            name = ctx.deployment
+            self._app_name = ctx.app_name
+        self._engine_kwargs = dict(
+            max_batch=max_batch, max_len=max_len, seed=seed, paged=paged,
+            page_size=page_size, kv_pages=kv_pages,
+            prefix_cache=prefix_cache, kv_preempt=kv_preempt,
+            steps_per_sync=steps_per_sync, lora_slots=lora_slots,
+            lora_rank=lora_rank, name=name)
+        self._cfg = cfg
+        self._params = params
+        self._warmup = warmup
+        self._role = role
+        self._decode_dep = decode_deployment
+        self._decode_handle = None
+        self._decode_kv_handle = None
+        # Migration counters (stats()["pd"]).  kv_decode runs on the
+        # caller's threads, so the pull side takes the lock; the put side
+        # runs on the event loop.
+        self._pd_lock = threading.Lock()
+        self._migrations = 0
+        self._pd_fallbacks = 0
+        self._kv_migrate_bytes = 0
+        self._kv_migrate_put_ms = 0.0
+        self._kv_pull_bytes = 0
+        self._kv_pull_ms = 0.0
+        # Overload ladder over the engine's queue depth: level 1 sheds
+        # disaggregation to unified serving, level 2 also shrinks the
+        # decode sync window.  Kill switch RAY_TPU_SERVE_DEGRADE=0.
+        self._overload = slo.OverloadTracker(hi=max(4, 2 * max_batch))
+        self._degraded_window = max(1, min(2, steps_per_sync))
+        self._sheds = 0
+        self._restores = 0
+        # Tier-2 prefix store: knobs ride the `prefix_store` dict
+        # ({"enabled", "directory", "min_idle", "period_s",
+        # "watermark_frac", "min_tokens", "migrate_ms", ...}).
+        self._prefix_store_cfg = dict(prefix_store or {})
+        self._prefix_client = None
+        # Multi-LoRA page-in: one in-flight load per model_id (racing
+        # requests wait on its future) and a short TTL cache of the
+        # directory's version answer, so a resident adapter costs no
+        # directory round trip.
+        self._lora_client = None
+        self._lora_directory = lora_directory
+        self._lora_inflight: dict = {}
+        self._lora_inflight_lock = threading.Lock()
+        self._lora_seen: dict[str, tuple[float, int]] = {}
+        self._lora_ttl = float(
+            os.environ.get("RAY_TPU_LORA_TTL_S", "2.0") or 0.0)
+        self.adapter_load_errors = 0
+        self.adapter_admit_retries = 0
+        self._closed = False
+        self.engine = self._new_engine(self._engine_kwargs)
+        self._install_prefix_store()
+        self.engine.start()
+        if warmup:
+            self.engine.warmup()
+
+    def _new_engine(self, kwargs: dict) -> LLMEngine:
+        kw = {k: v for k, v in kwargs.items() if k != "paged"}
+        return LLMEngine(self._cfg, self._params, device=self._device, **kw)
+
+    def _install_prefix_store(self) -> None:
+        """(Re)attach the prefix-store client and demotion hook to the
+        current engine (constructor and every reconfigure rebuild).
+        Disabled for prefix_cache=0 engines and by
+        prefix_store={"enabled": False}."""
+        if self._prefix_client is not None:
+            self._prefix_client.close()
+            self._prefix_client = None
+        eng = self.engine
+        cfg = self._prefix_store_cfg
+        if not eng._prefix_cache or cfg.get("enabled", True) is False:
+            eng.set_prefix_store(None)
+            return
+        ctx = self._runtime.replica_context()
+        rid = (ctx.replica_tag or None) if ctx is not None else None
+        self._prefix_client = PrefixStoreClient(
+            app=self._app_name or "default", deployment=eng.name,
+            # Unique in-process fallback: several servers may share one
+            # interpreter, and a bare pid would make one server's close()
+            # withdraw its siblings' entries.
+            replica_id=rid or f"pid:{os.getpid()}-{os.urandom(3).hex()}",
+            seed=self._engine_kwargs.get("seed", 0), page=eng.page,
+            config=cfg, directory=cfg.get("directory"),
+            runtime=self._runtime)
+        eng.set_prefix_store(
+            self._prefix_client.publish,
+            min_idle=cfg.get("min_idle", 256),
+            period_s=cfg.get("period_s", 0.25),
+            watermark_frac=cfg.get("watermark_frac", 0.125),
+            limit=cfg.get("limit", 2),
+            max_inflight=cfg.get("max_inflight", 2))
+
+    # -------------------------------------------------------- multi-LoRA
+    def _request_model_id(self, request) -> str | None:
+        """The request's adapter, gated per request by the RAY_TPU_LORA
+        kill switch (off: every request serves the base model)."""
+        if not isinstance(request, dict):
+            return None
+        mid = request.get("model_id")
+        if mid is None or not lora_on():
+            return None
+        return mid
+
+    def _ensure_adapter_sync(self, model_id: str) -> None:
+        """Make `model_id` device-resident before submit (blocking;
+        callers keep it off the event loop).  Fast path: resident at the
+        version the directory reported within RAY_TPU_LORA_TTL_S seconds.
+        Slow path: one in-flight load per model_id (racing requests wait
+        on its future): directory lookup, pull through the runtime,
+        engine.load_adapter.  Every failure surfaces as AdapterLoadError
+        before the request holds a batch slot."""
+        eng = self.engine
+        if eng._lora_banks is None:
+            raise AdapterLoadError(
+                "deployment has no adapter slots (set engine_config "
+                "lora_slots)", model_id=model_id, deployment=eng.name,
+                reason="lora_slots=0")
+        now = time.monotonic()
+        seen = self._lora_seen.get(model_id)
+        if seen and seen[0] > now \
+                and eng.adapter_resident(model_id, seen[1]):
+            eng.adapter_touch(model_id)
+            return
+        with self._lora_inflight_lock:
+            fut = self._lora_inflight.get(model_id)
+            owner = fut is None
+            if owner:
+                fut = concurrent.futures.Future()
+                self._lora_inflight[model_id] = fut
+        if not owner:
+            fut.result(timeout=120.0)   # re-raises the owner's error
+            return
+        try:
+            try:
+                if self._lora_client is None:
+                    self._lora_client = lora_mod.LoraClient(
+                        directory=self._lora_directory,
+                        runtime=self._runtime)
+                entry = self._lora_client.lookup(model_id)
+                if entry is None:
+                    raise AdapterLoadError(
+                        "no such adapter published",
+                        model_id=model_id, deployment=eng.name,
+                        reason="not_published")
+                if not eng.adapter_resident(model_id, entry["version"]):
+                    adapter = lora_mod.resolve_entry(entry, self._runtime)
+                    eng.load_adapter(model_id, adapter,
+                                     version=entry["version"])
+                eng.adapter_touch(model_id)
+                self._lora_seen[model_id] = (
+                    time.monotonic() + self._lora_ttl, entry["version"])
+                fut.set_result(None)
+            except Exception as e:  # noqa: BLE001 - typed reject
+                self.adapter_load_errors += 1
+                err = e if isinstance(e, AdapterLoadError) \
+                    else AdapterLoadError(
+                        f"adapter load faulted: {type(e).__name__}: {e}",
+                        model_id=model_id, deployment=eng.name,
+                        reason="load_failed")
+                fut.set_exception(err)
+                raise err from (None if e is err else e)
+        finally:
+            with self._lora_inflight_lock:
+                self._lora_inflight.pop(model_id, None)
+
+    def _graft_eligible(self, request) -> bool:
+        """The one miss-path gate of the unary and streaming entry points:
+        a dict request with a token prompt of at least one page, not opted
+        out, with the env switch on."""
+        eng = self.engine
+        if (self._prefix_client is None or not isinstance(request, dict)
+                or not request.get("prefix_store", True)
+                or not eng._prefix_cache):
+            return False
+        prompt = request.get("prompt")
+        if not isinstance(prompt, (list, tuple)) \
+                or len(prompt) < eng.page:
+            return False
+        return prefix_store_on()
+
+    def _maybe_graft_sync(self, request: dict) -> None:
+        """Miss-path store consultation for one request (blocking): graft
+        the deepest affordable stored prefix before submitting.  Any
+        failure degrades to a plain local prefill."""
+        if not self._graft_eligible(request):
+            return
+        try:
+            # Adapter requests graft under the adapter's salt.
+            mid = self._request_model_id(request)
+            salt = self.engine.adapter_salt_of(mid) if mid else 0
+            self._prefix_client.maybe_graft(
+                self.engine, list(request["prompt"]), salt=salt)
+        except Exception:  # noqa: BLE001 - degrade, never fail
+            pass
+
+    async def _maybe_graft_async(self, request: dict) -> None:
+        if not self._graft_eligible(request):
+            return
+        await asyncio.get_running_loop().run_in_executor(
+            None, self._maybe_graft_sync, request)
+
+    # ------------------------------------------------- overload ladder
+    def _update_pressure(self) -> int:
+        """Feed the engine's queue depth to the hysteresis tracker; on a
+        level change apply or restore the sync-window knob.  Kill switch
+        RAY_TPU_SERVE_DEGRADE=0 pins level 0 (restoring a shrunk
+        window)."""
+        eng = self.engine
+        if not slo.degrade_on():
+            if self._overload.level:
+                self._overload.level = 0
+                eng.set_sync_window(None)
+            return 0
+        depth = eng._waiting.qsize() + len(eng._pending)
+        level, prev = self._overload.update(depth)
+        if level != prev:
+            eng.set_sync_window(
+                self._degraded_window if level >= 2 else None)
+            if level > prev:
+                self._sheds += 1
+            else:
+                self._restores += 1
+        return level
+
+    # --------------------------------------------------- prefill/decode
+    def _disagg(self, request: dict) -> bool:
+        return (self._role == "prefill"
+                and self._decode_dep is not None
+                and pd_disagg_on()
+                and request.get("disagg", True)
+                and request.get("max_new_tokens", 32) > 1)
+
+    def _get_decode_handle(self):
+        """The decode pool's handle pair, made once per server: the base
+        handle (full-generate fallback) and its kv_decode sibling.  A name
+        resolves through the runtime (the null runtime raises)."""
+        if self._decode_handle is None:
+            dd = self._decode_dep
+            if isinstance(dd, str):
+                base = self._runtime.deployment_handle(
+                    dd, self._app_name or "default")
+            else:
+                base = dd
+            self._decode_kv_handle = base.options(method_name="kv_decode")
+            self._decode_handle = base
+        return self._decode_handle
+
+    async def _local_generate(self, request: dict, t_start: float,
+                              why: str) -> dict:
+        fut = self.engine.submit(
+            request["prompt"],
+            max_new_tokens=request.get("max_new_tokens", 32),
+            temperature=request.get("temperature", 0.0),
+            eos_id=request.get("eos_id"))
+        out = await asyncio.wrap_future(fut)
+        out["total_s"] = time.perf_counter() - t_start
+        out["pd_fallback"] = why
+        return out
+
+    async def _prefill_decode(self, request: dict) -> dict:
+        """The migration path: prefill here, put the KV pages through the
+        runtime, hand the ref to a decode replica.  Export error: serve
+        unified locally.  Decode-pool error (including a decode deployment
+        that cannot be resolved): full re-prefill on the decode pool, then
+        locally as the last resort."""
+        t_start = time.perf_counter()
+        try:
+            pre = await asyncio.wrap_future(self.engine.submit(
+                request["prompt"], max_new_tokens=1,
+                temperature=request.get("temperature", 0.0),
+                eos_id=request.get("eos_id"), prefill_only=True))
+        except Exception:  # noqa: BLE001 - export window faults
+            self._pd_fallbacks += 1
+            return await self._local_generate(request, t_start,
+                                              "export_failed")
+        exp = pre.get("kv_export")
+        eos = request.get("eos_id")
+        if exp is None or (eos is not None and pre["tokens"]
+                           and pre["tokens"][-1] == eos):
+            return {"tokens": pre["tokens"], "ttft_s": pre["ttft_s"],
+                    "total_s": time.perf_counter() - t_start}
+        kv = exp["kv"]
+
+        def _put():
+            t0 = time.perf_counter()
+            r = self._runtime.put(kv)
+            return r, (time.perf_counter() - t0) * 1000.0
+
+        # A put may block on allocation: keep it off the event loop.
+        ref, put_ms = await asyncio.get_running_loop().run_in_executor(
+            None, _put)
+        self._migrations += 1
+        self._kv_migrate_bytes += kv.nbytes
+        self._kv_migrate_put_ms += put_ms
+        meta = {"prompt": list(request["prompt"]),
+                "tokens": exp["tokens"], "kv_len": exp["len"],
+                "page": exp["page"], "sample_seed": exp["sample_seed"],
+                "max_new_tokens": request.get("max_new_tokens", 32),
+                "temperature": request.get("temperature", 0.0),
+                "eos_id": eos}
+        # The runtime now holds the KV: drop the host copy before the
+        # decode await.
+        pre.pop("kv_export", None)
+        exp = kv = None
+        try:
+            self._get_decode_handle()
+            out = await self._decode_kv_handle.remote(meta, ref)
+            return {"tokens": out["tokens"], "ttft_s": pre["ttft_s"],
+                    "total_s": time.perf_counter() - t_start,
+                    "disagg": True}
+        except Exception:  # noqa: BLE001 - decode pool failed
+            self._pd_fallbacks += 1
+            del ref            # free the orphaned KV object
+            try:
+                out = await self._get_decode_handle().remote(
+                    {**request, "disagg": False})
+                out["pd_fallback"] = "full_reprefill"
+                return out
+            except Exception:  # noqa: BLE001 - decode pool gone
+                return await self._local_generate(request, t_start,
+                                                  "local")
+
+    def kv_decode(self, meta: dict, kv_ref) -> dict:
+        """Decode-pool entry point: pull the migrated KV (through the
+        runtime when it is a ref; a numpy array or tensor as it is),
+        import it into this engine's pool and run the decode phase to
+        completion."""
+        t0 = time.perf_counter()
+        blob = kv_ref
+        if self._runtime.is_ref(blob):
+            blob = self._runtime.get(blob)
+        blob = as_tensor(blob)
+        nbytes = blob.nbytes
+        pull_ms = (time.perf_counter() - t0) * 1000.0
+        fut = self.engine.kv_import(
+            meta["prompt"], meta["tokens"], blob,
+            kv_len=meta["kv_len"],
+            max_new_tokens=meta.get("max_new_tokens", 32),
+            temperature=meta.get("temperature", 0.0),
+            eos_id=meta.get("eos_id"),
+            sample_seed=meta.get("sample_seed", 0))
+        with self._pd_lock:
+            self._kv_pull_bytes += nbytes
+            self._kv_pull_ms += pull_ms
+        del blob, kv_ref       # the engine holds the tensor until scatter
+        out = fut.result()
+        out["migrated"] = True
+        return out
+
+    def _resolve_weights(self, refs):
+        """The reference's forms of a weight push: a tree, one ref, or a
+        list of refs to dict shards that merge into the tree."""
+        rt = self._runtime
+        if rt.is_ref(refs):
+            return rt.get(refs)
+        if (isinstance(refs, (list, tuple)) and refs
+                and all(rt.is_ref(r) for r in refs)):
+            got = [rt.get(r) for r in refs]
+            if len(got) == 1:
+                return got[0]
+            if not all(isinstance(g, dict) for g in got):
+                raise ValueError(
+                    "update_weights: a multi-ref push must resolve to "
+                    "dict shards that merge into the param tree; got "
+                    f"{[type(g).__name__ for g in got]}")
+            tree = {}
+            for g in got:
+                tree.update(g)
+            return tree
+        return refs
+
+    def update_weights(self, refs, version: int | None = None) -> int:
+        """Replica-side weight push (online RLHF): stage a fresh param
+        tree on the engine (decode keeps running; the swap lands between
+        windows) and invalidate the tier-2 entries of older versions.
+        `refs` is the tree, a runtime ref to it, or a list of refs to dict
+        shards; refs resolve through the runtime, and are not pulled when
+        RAY_TPU_RL_WEIGHT_SYNC=0 drops the update.  Returns the staged
+        (or, kill-switched, current) version."""
+        tree = refs
+        if env_on("RAY_TPU_RL_WEIGHT_SYNC"):
+            tree = self._resolve_weights(refs)
+        v = self.engine.update_weights(tree, version)
+        if self._prefix_client is not None:
+            try:
+                self._prefix_client.invalidate(v)
+            except Exception:  # noqa: BLE001 - store is best-effort
+                pass
+        return v
+
+    def kv_check(self) -> dict:
+        """Assert the engine's block-state partition (raises on a leaked
+        or double-booked block), report the tier-2 objects this server
+        still owns, and after shutdown assert that count is zero."""
+        out = self.engine.kv_check()
+        if self._prefix_client is not None:
+            n = self._prefix_client.object_count()
+            out["prefix_store_objects"] = n
+            if self._closed and n:
+                raise AssertionError(
+                    f"{n} tier-2 prefix objects leaked after shutdown "
+                    "(demoted subtrees must die with the app)")
+        return out
+
+    async def __call__(self, request: dict) -> dict:
+        # Under sustained overload (level >= 1) disaggregation sheds to
+        # unified serving on this replica: same engine, same seed, the
+        # same tokens, minus the migration round trips.
+        level = self._update_pressure()
+        model_id = self._request_model_id(request)
+        attempts = self._LORA_ADMIT_RETRIES if model_id is not None else 1
+        for attempt in range(attempts):
+            if model_id is not None:
+                # Page-in before the graft lookup: the store keys are
+                # salted per (adapter, version).
+                await asyncio.get_running_loop().run_in_executor(
+                    None, self._ensure_adapter_sync, model_id)
+            if level < 1 and attempt == 0:
+                # Overloaded replicas skip the store entirely.
+                await self._maybe_graft_async(request)
+            # Adapter requests serve unified.
+            if level < 1 and model_id is None and self._disagg(request):
+                return await self._prefill_decode(request)
+            fut = self.engine.submit(
+                request["prompt"],
+                max_new_tokens=request.get("max_new_tokens", 32),
+                temperature=request.get("temperature", 0.0),
+                eos_id=request.get("eos_id"),
+                model_id=model_id)
+            try:
+                return await asyncio.wrap_future(fut)
+            except AdapterLoadError as e:
+                if e.reason != "not_resident" or attempt >= attempts - 1:
+                    raise
+                # Evicted between page-in and admission by a concurrent
+                # tenant's load; the request held no blocks or lanes yet,
+                # so re-page and resubmit.
+                self._lora_seen.pop(model_id, None)
+                self.adapter_admit_retries += 1
+
+    def stream(self, request: dict):
+        """Token-streaming generator: yields each token id as the engine
+        decodes it."""
+        if isinstance(request, dict) and "prompt" not in request:
+            request = request.get("body") or request
+        # Streaming traffic feeds the ladder too.
+        level = self._update_pressure()
+        model_id = self._request_model_id(request)
+        attempts = self._LORA_ADMIT_RETRIES if model_id is not None else 1
+        for attempt in range(attempts):
+            if model_id is not None:
+                self._ensure_adapter_sync(model_id)
+            if level < 1 and attempt == 0:
+                self._maybe_graft_sync(request)
+            q: queue.Queue = queue.Queue()
+            fut = self.engine.submit(
+                request["prompt"],
+                max_new_tokens=request.get("max_new_tokens", 32),
+                temperature=request.get("temperature", 0.0),
+                eos_id=request.get("eos_id"),
+                token_queue=q,
+                model_id=model_id)
+            while True:
+                tok = q.get()
+                if tok is None:
+                    break
+                yield tok
+            # The None sentinel comes just before the future resolves:
+            # wait briefly so an engine failure cannot pass for a clean
+            # end of the stream.
+            try:
+                exc = fut.exception(timeout=5.0)
+            except concurrent.futures.TimeoutError:
+                exc = None
+            if exc is None:
+                return
+            if (isinstance(exc, AdapterLoadError)
+                    and exc.reason == "not_resident"
+                    and attempt < attempts - 1):
+                # Admission-time eviction: nothing was streamed yet.
+                self._lora_seen.pop(model_id, None)
+                self.adapter_admit_retries += 1
+                continue
+            raise exc
+
+    def stats(self) -> dict:
+        out = self.engine.stats()
+        out["pd"] = {
+            "role": self._role,
+            "migrations": self._migrations,
+            "fallbacks": self._pd_fallbacks,
+            "kv_migrate_bytes": self._kv_migrate_bytes,
+            "kv_migrate_put_ms": round(self._kv_migrate_put_ms, 3),
+            "kv_pull_bytes": self._kv_pull_bytes,
+            "kv_pull_ms": round(self._kv_pull_ms, 3),
+        }
+        out["overload"] = {
+            "level": self._overload.level,
+            "sheds": self._sheds,
+            "restores": self._restores,
+        }
+        out["prefix_store"] = (self._prefix_client.stats()
+                               if self._prefix_client is not None
+                               else {"enabled": False})
+        if "lora" in out:
+            out["lora"]["load_errors"] = self.adapter_load_errors
+            out["lora"]["admit_retries"] = self.adapter_admit_retries
+        return out
+
+    def reconfigure(self, user_config: dict) -> None:
+        """Apply engine knobs (serve/schema.py's ENGINE_CONFIG_KEYS, plus
+        kv_pages and paged).  The whole new configuration is validated
+        before anything changes, so a rejected reconfigure leaves the
+        server as it was.  Knobs that reshape device memory rebuild the
+        engine: the old engine is stopped first and the requests it still
+        held fail with a clear error."""
+        if not user_config:
+            return
+        allowed = ENGINE_CONFIG_KEYS | {"kv_pages", "paged"}
+        unknown = set(user_config) - allowed
+        if unknown:
+            raise ValueError(
+                f"unknown engine_config keys {sorted(unknown)}; "
+                f"valid: {sorted(allowed)}")
+        cfg = dict(user_config)
+        ps_given = cfg.pop("prefix_store", None)
+        # Pool-role knobs live on the server and never cost a rebuild.
+        new_role = cfg.pop("role", None) or self._role
+        dd_given = cfg.pop("decode_deployment", None)
+        new_dd = self._decode_dep if dd_given is None else dd_given
+        if new_role != "prefill" and dd_given is None:
+            # Moving away from prefill sheds an inherited decode target;
+            # an explicit one with a non-prefill role is rejected below.
+            new_dd = None
+        _check_pool_role(new_role, new_dd)
+        if "kv_blocks" in cfg:
+            cfg["kv_pages"] = cfg.pop("kv_blocks")
+        kwargs = {**self._engine_kwargs, **cfg}
+        if new_role == "prefill" and not kwargs.get("paged", True):
+            raise ValueError(
+                "role='prefill' requires a paged engine (KV migration "
+                "is page-granular)")
+        if not kwargs.get("paged", True):
+            raise NotImplementedError(_DENSE_NOT_PORTED)
+
+        def commit_roles():
+            self._role = new_role
+            if new_dd is not self._decode_dep:
+                self._decode_dep = new_dd
+                self._decode_handle = None
+                self._decode_kv_handle = None
+
+        if kwargs == self._engine_kwargs:
+            commit_roles()
+            if ps_given is not None:
+                self._prefix_store_cfg = dict(ps_given)
+                self._install_prefix_store()
+            return
+        old = self.engine
+        old.stop()
+        old.abort_pending(RuntimeError(
+            "LLM engine rebuilt by reconfigure; resubmit the request"))
+        self._engine_kwargs = kwargs
+        # Roles commit only once the rebuild succeeded.
+        self.engine = self._new_engine(kwargs)
+        # The fresh engine's banks are empty: the next adapter request
+        # re-pages.
+        self._lora_seen.clear()
+        commit_roles()
+        if ps_given is not None:
+            self._prefix_store_cfg = dict(ps_given)
+        # Re-attach the demotion hook; the old engine's entries are
+        # withdrawn.
+        self._install_prefix_store()
+        self.engine.start()
+        if self._warmup:
+            self.engine.warmup()
+
+    def shutdown(self) -> None:
+        """Deterministic close: stop the engine thread, fail whatever is
+        still queued, then withdraw the tier-2 entries (after the stop, so
+        the export thread's last publish cannot race the withdrawal)."""
+        self.engine.stop()
+        self.engine.abort_pending(
+            RuntimeError("LLM engine shut down with the replica"))
+        self._closed = True
+        if self._prefix_client is not None:
+            try:
+                self._prefix_client.close()
+            except Exception:  # noqa: BLE001 - controller already gone
+                pass
+
+    def __del__(self):
+        # GC backstop only; the deterministic path is shutdown().
+        try:
+            self.engine.stop()
+        except Exception:  # noqa: BLE001
+            pass

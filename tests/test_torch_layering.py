@@ -39,6 +39,11 @@ def test_walk_covers_the_package_and_chip_smoke():
     files = _files()
     rels = {os.path.relpath(p, REPO) for p in files}
     for rel in ("chip_smoke.py", "ray_tpu_torch/serve/llm.py",
+                "ray_tpu_torch/serve/runtime.py",
+                "ray_tpu_torch/serve/slo.py",
+                "ray_tpu_torch/serve/schema.py",
+                "ray_tpu_torch/serve/prefix_store.py",
+                "ray_tpu_torch/serve/lora.py",
                 "ray_tpu_torch/models/llama.py",
                 "ray_tpu_torch/ops/paged_attention.py",
                 "ray_tpu_torch/ops/flash_attention.py",
