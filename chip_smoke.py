@@ -34,6 +34,14 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  window after the first of its size K must be a graph
                  replay, and one replayed window runs under CUDA sync
                  debug mode "error".
+  3b. engine_small_dense_f32 -- the dense engine (paged=False) at `debug`
+                 in f32: its greedy tokens on CUDA (captured windows, the
+                 forward kernel in prefill) equal the same engine's on the
+                 CPU and the paged engine's on CUDA; every window after the
+                 first of its size is a replay and no paged kernel runs;
+                 an LLMServer(paged=False) serves concurrent calls and a
+                 stream with the same tokens, and a server reconfigured
+                 from paged to dense and back gives them in all three.
   4. serve_8b -- `llama3-8b` at full width and depth in bf16 with random
                  seeded weights and the engine's defaults: eight requests
                  of 300-1000 prompt tokens submitted together, 64 new
@@ -82,6 +90,16 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  fallback.  Counters zeroed before, read after (a) and
                  (b): both kernels launched, the forward on its bf16
                  route only, every counted window a replay.
+  4d. serve_8b_dense -- the dense engine on the same model and weights
+                 (share_params) at the engine's defaults but paged=False
+                 (max_len 8192, max_batch 8, K 8): the eight requests as
+                 one held wave, against a paged engine's held wave.  Each
+                 first token must be the paged engine's (the same prefill);
+                 the share of equal decoded tokens is reported.  Counters
+                 zeroed before, read after: the forward on its bf16 route,
+                 no paged launch, every counted window a replay.  Then a
+                 wave of fresh prompts under torch.profiler: busy share
+                 and device time by kernel group.
   5. train_small_f32 -- three `make_train_step` steps of `debug` in f32
                  (TF32 off) at seq 100, batch 2, from the same params and
                  batch on CUDA (kernels) and on the CPU (plain versions),
@@ -100,6 +118,15 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  their bf16 (wgmma) routes), then one step under
                  torch.profiler for the device time by kernel group, in
                  which no FMA flash kernel may run.
+  6b. train_350m_sharded -- the same model, state, batch and optimizer
+                 through `sharded_train_step` on a one-rank NCCL group and
+                 a `create_mesh(MeshConfig(data=1))` DeviceMesh, the state
+                 laid out by `reshard_state`: a warm-up step and four timed
+                 steps, each beside the single-device step from the same
+                 state (loss and grad norm equal to the bit; step ms,
+                 tokens/s and MFU of both), and 24 launches a step of each
+                 flash kernel on its bf16 route in both; then one sharded
+                 step under torch.profiler (busy share, kernel groups).
 
 The line before the last is {"kernels": [...]}, one entry per kernel
 (the forward, dQ and dK/dV: one per dtype route); the last line is
@@ -695,6 +722,117 @@ def phase_engine_small():
     return launched
 
 
+# ----------------------------------------- phase 3b: small f32 dense engine
+DENSE_PROMPTS = [[(i * k + 3) % 250 + 1 for i in range(n)]
+                 for k, n in ((7, 21), (5, 13), (11, 30), (3, 9), (13, 40),
+                              (17, 5))]
+DENSE_NEW = [9, 6, 12, 7, 5, 10]
+SMALL = dict(max_batch=4, max_len=128, steps_per_sync=4, seed=0)
+
+
+def small_wave(eng):
+    """DENSE_PROMPTS submitted together on a started engine; tokens."""
+    futs = [eng.submit(p, max_new_tokens=n)
+            for p, n in zip(DENSE_PROMPTS, DENSE_NEW)]
+    return [f.result(timeout=600)["tokens"] for f in futs]
+
+
+def phase_engine_small_dense():
+    """The dense engine (paged=False) at `debug` in f32: its greedy tokens
+    on CUDA (captured windows, the flash forward in prefill) against the
+    same engine on the CPU and the paged engine on CUDA, an LLMServer
+    (paged=False) serving calls and a stream, and a server reconfigured
+    from paged to dense and back."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # full f32 products
+    cfg = dataclasses.replace(llama.llama_configs()["debug"],
+                              dtype=torch.float32)
+    cpu_params = llama.init_params(cfg, torch.Generator().manual_seed(SEED))
+    params = tree_to(cpu_params, "cuda")
+    runs, stats = {}, {}
+    zero_serve_counts()
+    for name, device, kw in (("dense_cuda", "cuda", {"paged": False}),
+                             ("dense_cpu", "cpu", {"paged": False}),
+                             ("paged_cuda", "cuda", {"page_size": 16})):
+        eng = LLMEngine(cfg, params if device == "cuda" else cpu_params,
+                        device=device, **SMALL, **kw)
+        eng.start()
+        try:
+            small_wave(eng)                     # the first windows capture
+            runs[name] = small_wave(eng)
+        finally:
+            eng.stop()
+        stats[name] = graph_accounting(eng.stats())
+        if name == "dense_cuda":
+            torch.cuda.synchronize()
+            dense_launches = launch_counts()
+            stats[name]["kv_check"] = eng.kv_check()
+    # The server, on CUDA: concurrent calls and a stream.
+    reqs = [{"prompt": p, "max_new_tokens": n}
+            for p, n in zip(DENSE_PROMPTS, DENSE_NEW)]
+
+    async def gather(srv):
+        return await asyncio.gather(*(srv(r) for r in reqs))
+
+    srv = LLMServer(cfg, params=params, device="cuda", paged=False, **SMALL)
+    try:
+        served = [r["tokens"]
+                  for r in asyncio.run(asyncio.wait_for(gather(srv), 600))]
+        streamed = list(srv.stream(reqs[2]))
+        srv_check = srv.kv_check()
+    finally:
+        srv.shutdown()
+    # Reconfigure a paged server to dense and back.
+    srv = LLMServer(cfg, params=params, device="cuda", page_size=16, **SMALL)
+    recon = {}
+    try:
+        for label, change in (("paged", None), ("dense", {"paged": False}),
+                              ("paged_again", {"paged": True})):
+            if change:
+                srv.reconfigure(change)
+            recon[label] = {
+                "paged": srv.engine.paged,
+                "tokens": [r["tokens"] for r in asyncio.run(
+                    asyncio.wait_for(gather(srv), 600))]}
+    finally:
+        srv.shutdown()
+    dense = runs["dense_cuda"]
+    row = {"phase": "engine_small_dense_f32", "requests": len(reqs),
+           "max_batch": SMALL["max_batch"],
+           "dense_cuda_equals_dense_cpu": dense == runs["dense_cpu"],
+           "dense_cuda_equals_paged_cuda": dense == runs["paged_cuda"],
+           "server_equals_engine": served == dense,
+           "stream_equals_call": streamed == dense[2],
+           "server_kv_check": srv_check,
+           "reconfigure": {k: {"paged": v["paged"],
+                               "same_tokens": v["tokens"] == dense}
+                           for k, v in recon.items()},
+           "graphs": stats, "launches_dense_cuda": dense_launches}
+    emit(row)
+    if not (row["dense_cuda_equals_dense_cpu"]
+            and row["dense_cuda_equals_paged_cuda"]
+            and row["server_equals_engine"] and row["stream_equals_call"]
+            and all(v["same_tokens"] for v in row["reconfigure"].values())
+            and [v["paged"] for v in row["reconfigure"].values()]
+            == [True, False, True]):
+        raise AssertionError(f"engine_small_dense_f32: tokens: {row}")
+    g = stats["dense_cuda"]
+    if g["graph_replays"] == 0 or g["decode_windows"] \
+            != g["graph_replays"] + g["graph_captures"] \
+            or stats["dense_cuda"]["kv_check"] != {"ok": True,
+                                                  "paged": False}:
+        raise AssertionError(f"engine_small_dense_f32: windows: {g}")
+    if dense_launches["paged_decode_attention"] \
+            or dense_launches["flash_attention_fwd/fma"] == 0 \
+            or dense_launches["flash_attention_fwd/wgmma"]:
+        raise AssertionError(f"engine_small_dense_f32: the dense engine's "
+                             f"launches {dense_launches}")
+    return dense_launches
+
+
 # ----------------------------------------------- phase 4: full-width 8B
 def paged_per_replay(cfg, k: int) -> int:
     """Paged-kernel launches in one replay of a K-step window."""
@@ -1199,6 +1337,103 @@ def phase_serve_8b_server(card, cfg, params, device="cuda"):
     return {"unified": launches_a, "pd": launches_b}
 
 
+def phase_serve_8b_dense(card, cfg, params):
+    """The dense engine (paged=False) on `llama3-8b` in bf16 at the
+    engine's defaults (max_len cfg.max_seq, max_batch 8, K 8), on the
+    caller's weights (share_params), against a paged engine on the same
+    weights: the eight MAIN_PROMPTS requests as one held wave on each.
+    Both prefill the same wave through the flash forward, so each
+    request's first token must be the paged engine's; later tokens come
+    from einsum attention over the dense cache against the paged kernel
+    and may round differently in bf16 (their share of equal tokens is
+    reported, not asserted)."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+    from ray_tpu_torch.tools.profile_serve import trace_wave, wave_decode_rate
+
+    V, new = cfg.vocab_size, 64
+    rng = np.random.default_rng(SEED + 24)
+    prompts = [rng.integers(1, V, size=n).tolist() for n in MAIN_PROMPTS]
+    warm = rng.integers(1, V, size=300).tolist()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    paged = LLMEngine(cfg, params, share_params=True, seed=SEED,
+                      name="paged")
+    paged.start()
+    try:
+        paged.generate(warm, max_new_tokens=paged.steps_per_sync + 1)
+        want, _ = engine_wave(paged, prompts, new, hold=True)
+    finally:
+        paged.stop()
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = LLMEngine(cfg, params, share_params=True, seed=SEED, paged=False,
+                    name="dense")
+    K = eng.steps_per_sync
+    cache_bytes = sum(t.nbytes for kk in ("k", "v") for t in eng.cache[kk])
+    eng.start()
+    try:
+        # Warm-up captures the K-step window; every counted one replays.
+        eng.generate(warm, max_new_tokens=K + 1)
+        torch.cuda.synchronize()
+        zero_serve_counts()
+        s0 = eng.stats()
+        res, wave_s = engine_wave(eng, prompts, new, hold=True)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        s1 = eng.stats()
+        check = eng.kv_check()
+        # The same wave shape on fresh prompts under torch.profiler.
+        traced = trace_wave(eng, [rng.integers(1, V, size=n).tolist()
+                                  for n in MAIN_PROMPTS])
+        graphs = eng.graph_stats()
+    finally:
+        eng.stop()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = [r["tokens"] for r in res]
+    ref = [r["tokens"] for r in want]
+    decoded = [(a[1:], b[1:]) for a, b in zip(got, ref)]
+    equal = sum(x == y for a, b in decoded for x, y in zip(a, b))
+    total = sum(len(a) for a, _ in decoded)
+    replays = s1["graph_replays"] - s0["graph_replays"]
+    windows = s1["decode_windows"] - s0["decode_windows"]
+    row = {"phase": "serve_8b_dense", "card": card, "model": "llama3-8b",
+           "dtype": "bfloat16", "paged": False, "max_len": cfg.max_seq,
+           "max_batch": 8, "steps_per_sync": K,
+           "prompt_tokens": MAIN_PROMPTS, "new_tokens_each": new,
+           "first_tokens_equal_paged": [a[0] == b[0]
+                                        for a, b in zip(got, ref)],
+           "decoded_equal_share": equal / total,
+           "decoded_equal": equal, "decoded": total,
+           "dense": wave_row(res, wave_s),
+           "paged_engine_decode_tokens_per_s": wave_decode_rate(want),
+           "dense_cache_bytes": cache_bytes,
+           "decode_windows": windows, "graph_replays": replays,
+           "graph_capture_s": s1["graph_capture_s"], "graphs": graphs,
+           "kv_check": check, "launches": launches,
+           "traced_wave": traced,
+           "traced_device_busy_share": traced["device_busy_share"],
+           "peak_mem_gb": peak}
+    emit(row)
+    if not all(row["first_tokens_equal_paged"]) \
+            or any(len(t) != new for t in got) \
+            or not all(0 <= t < V for toks in got for t in toks):
+        raise AssertionError(f"serve_8b_dense: tokens: {row}")
+    if replays == 0 or replays != windows \
+            or launches["paged_decode_attention"] \
+            or launches["flash_attention_fwd/wgmma"] == 0 \
+            or launches["flash_attention_fwd/wgmma"] \
+            != launches["flash_attention_fwd"] \
+            or check != {"ok": True, "paged": False}:
+        raise AssertionError(f"serve_8b_dense: windows {windows}, replays "
+                             f"{replays}, launches {launches}, {check}")
+    return launches
+
+
 # --------------------------------------------- phase 5: small f32 training
 def flash_counts() -> dict:
     """Launches of each flash wrapper and, as "<wrapper>/<route>", of each
@@ -1433,6 +1668,142 @@ def phase_train_350m(card):
     return launches
 
 
+# ------------------------------------- phase 6b: bench-350m, sharded step
+# The sharded step against the single-device step from the same state, in
+# bf16: on a one-rank mesh every placement is Replicate and the DTensor ops
+# run the same local kernels on the same data in the same order, so the
+# loss and the pre-clip grad norm must be equal to the bit (PERF.md keeps
+# the readings: every step of every run so far was).  Any difference means
+# the sharded path computes something else.
+
+
+def phase_train_350m_sharded(card):
+    """`bench-350m` through `sharded_train_step` on a one-rank NCCL group
+    (a file:// store in a temporary directory) and `create_mesh(
+    MeshConfig(data=1))` on CUDA: the state, batch and optimizer of
+    train_350m laid out with `reshard_state`, then a warm-up step and
+    four timed steps, each beside the single-device step from the same
+    state.  The group is destroyed whatever happens; if NCCL or the mesh
+    cannot be set up, the phase fails."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.tools.profile_serve import kernel_groups
+    from ray_tpu_torch.train.step import (create_train_state,
+                                          default_optimizer, make_train_step,
+                                          reshard_state, sharded_train_step)
+
+    cfg = llama.llama_configs()["bench-350m"]
+    batch_size, seq, n_timed = 8, 2048, 4
+    opt = default_optimizer(total_steps=1000)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(batch_size, seq))).to("cuda")
+    batch = {"inputs": tokens, "targets": tokens}      # train_350m's batch
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{store}/store", world_size=1,
+            rank=0, timeout=datetime.timedelta(seconds=300))
+        mesh = create_mesh(MeshConfig(data=1))
+        single = create_train_state(SEED, cfg, opt)
+        t0 = time.perf_counter()
+        sharded = reshard_state(single, cfg, opt, mesh)
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t0
+        steps = {"single": make_train_step(cfg, opt),
+                 "sharded": sharded_train_step(cfg, opt, mesh)}
+        states = {"single": single, "sharded": sharded}
+        out = {k: {"loss": [], "grad_norm": [], "step_ms": [],
+                   "launches": []} for k in steps}
+        for i in range(1 + n_timed):          # step 0: warm-up, lr 0
+            for name in ("single", "sharded"):
+                torch.cuda.synchronize()
+                zero_flash_counts()
+                t0 = time.perf_counter()
+                states[name], m = steps[name](states[name], batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                rec = out[name]
+                rec["loss"].append(float(m["loss"]))
+                rec["grad_norm"].append(float(m["grad_norm"]))
+                rec["launches"].append(flash_counts())
+                if i:
+                    rec["step_ms"].append(ms)
+        placements = {str(p.placements) for p in
+                      (states["sharded"].params["embed"],
+                       states["sharded"].params["layers"]["wq"])}
+        mesh_desc = str(mesh)
+        # One more sharded step under torch.profiler: its device time
+        # against its wall time.
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            steps["sharded"](states["sharded"], batch)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        _, groups = kernel_groups(prof)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del states, steps, single, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    flops = cfg.flops_per_token()
+    row = {"phase": "train_350m_sharded", "card": card,
+           "model": "bench-350m", "dtype": "bfloat16", "mesh": mesh_desc,
+           "placements": sorted(placements), "batch": batch_size,
+           "seq": seq, "remat_mode": cfg.remat_mode,
+           "reshard_state_s": reshard_s, "tol": "bitwise",
+           "traced_sharded_step_ms": traced_ms,
+           "traced_device_ms": sum(ms for ms, _ in groups.values()),
+           "traced_device_busy_share":
+               sum(ms for ms, _ in groups.values()) / traced_ms,
+           "traced_groups": {g: {"ms": ms, "launches": n}
+                             for g, (ms, n) in sorted(groups.items())}}
+    for name, rec in out.items():
+        mean_ms = sum(rec["step_ms"]) / len(rec["step_ms"])
+        tps = batch_size * seq / (mean_ms / 1e3)
+        row[name] = {"loss": rec["loss"], "grad_norm": rec["grad_norm"],
+                     "step_ms": rec["step_ms"], "mean_step_ms": mean_ms,
+                     "tokens_per_s": tps, "mfu": tps * flops / BF16_FLOPS,
+                     "launches_per_step": rec["launches"][-1]}
+    row["max_loss_rel_diff"] = rel(out["sharded"]["loss"],
+                                   out["single"]["loss"])
+    row["max_grad_norm_rel_diff"] = rel(out["sharded"]["grad_norm"],
+                                        out["single"]["grad_norm"])
+    row["max_loss_abs_diff"] = max(abs(x - y) for x, y in zip(
+        out["sharded"]["loss"], out["single"]["loss"]))
+    emit(row)
+    if not all(math.isfinite(x) for rec in out.values()
+               for x in rec["loss"] + rec["grad_norm"]):
+        raise AssertionError(f"train_350m_sharded: non-finite: {row}")
+    if out["sharded"]["loss"] != out["single"]["loss"] \
+            or out["sharded"]["grad_norm"] != out["single"]["grad_norm"]:
+        raise AssertionError(f"train_350m_sharded: the sharded step left "
+                             f"the single-device step: {row}")
+    want = {n: (0 if n.endswith("/fma") else cfg.n_layers)
+            for n in out["single"]["launches"][-1]}
+    for name, rec in out.items():
+        if any(per != want for per in rec["launches"]):
+            raise AssertionError(f"train_350m_sharded {name}: launches "
+                                 f"{rec['launches']} != {want}")
+    return {n: sum(per[n] for per in out["sharded"]["launches"])
+            for n in want}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1458,6 +1829,7 @@ def main() -> int:
     rows = phase_kernels(timer)
     del timer
     small = phase_engine_small()
+    small_dense = phase_engine_small_dense()
     from ray_tpu_torch.models import llama
 
     cfg8 = llama.llama_configs()["llama3-8b"]
@@ -1472,11 +1844,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     server = phase_serve_8b_server(card, cfg8, params8)
+    dense8 = phase_serve_8b_dense(card, cfg8, params8)
     del params8
     gc.collect()
     torch.cuda.empty_cache()
     train_small = phase_train_small()
     train = phase_train_350m(card)
+    sharded = phase_train_350m_sharded(card)
 
     def entry(name, kernel, src, replaces, launches, row, part=None,
               errs=()):
@@ -1548,6 +1922,15 @@ def main() -> int:
         fwd["350m_train_layer"]["library_ms"]
     kernels[2]["launches_train_small_f32"] = \
         train_small["flash_attention_fwd/fma"]
+    # The dense engine's prefill (small f32 and 8B bf16), and the sharded
+    # step's forward and backward on a one-rank mesh.
+    kernels[0]["launches_serve_8b_dense"] = dense8["paged_decode_attention"]
+    kernels[1]["launches_serve_8b_dense"] = dense8["flash_attention_fwd/wgmma"]
+    kernels[2]["launches_engine_small_dense_f32"] = \
+        small_dense["flash_attention_fwd/fma"]
+    for i, name in ((1, "flash_attention_fwd"), (3, "flash_attention_bwd_dq"),
+                    (5, "flash_attention_bwd_dkv")):
+        kernels[i]["launches_train_350m_sharded"] = sharded[f"{name}/wgmma"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,15 @@ prefill and ops.paged_attention (paged kernel on CUDA) in decode.
 
 The training surface (`forward`, `loss_fn`, `token_logprobs`, `run_trunk`)
 checkpoints each layer when `cfg.remat`, with a selective-checkpoint
-policy per `cfg.remat_mode` (`remat_policy`).
+policy per `cfg.remat_mode` (`remat_policy`).  Its parameters may be
+DTensors laid out by `param_logical_axes` (parallel/sharding.py, the
+sharded train step): the trunk then constrains its activations where the
+reference does, and the mesh it reads is the parameters' own.
+
+Dense decode (`decode_step_unrolled` over `init_kv_cache_leaves`, and
+`decode_step` over the stacked `init_kv_cache`) is plain einsum attention
+over a [b, max_len, kvh, hd] cache per layer, as in the reference; the
+serving engine's `paged=False` mode runs it.
 
 Batched multi-LoRA (`lora` arguments of the serving functions): adapters
 live in per-target banks, stacked [L, n_slots, din, r] / [L, n_slots, r,
@@ -32,6 +40,9 @@ from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.paged_attention import (gather_pages,
                                                paged_decode_attention)
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from ray_tpu_torch.parallel.sharding import (logical_axis_size, mesh_of,
+                                             replicate_like,
+                                             with_sharding_constraint)
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -112,6 +123,27 @@ def param_shapes(cfg: LlamaConfig) -> dict:
         },
         "final_norm": (d,),
         "lm_head": (d, cfg.vocab_size),
+    }
+
+
+def param_logical_axes(cfg: LlamaConfig) -> dict:
+    """Logical-axes tree matching init_params' structure (consumed by
+    parallel.sharding.param_shardings)."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", None),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "heads"),
+            "wv": ("layers", "embed", "heads"),
+            "wo": ("layers", "heads", "embed"),
+            "mlp_norm": ("layers", None),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
     }
 
 
@@ -242,7 +274,19 @@ def _lora_layer_slice(lora, lid):
 # --------------------------------------------------------------- forward
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  dtype) -> torch.Tensor:
-    return table[tokens.long()].to(dtype)
+    """Token-embedding lookup.  A gather (`embedding`, whose backward
+    DTensor lays out for a sharded table as well), except on a table
+    whose vocab axis is sharded (a DTensor on a mesh with "tensor" > 1):
+    there, as in the reference, a one-hot matrix is contracted against
+    the table, so each rank touches only its vocab shard and the partial
+    sums reduce over the tensor axis.  The one-hot product picks single
+    rows, so both branches give the same values."""
+    if logical_axis_size("vocab", mesh_of(table)) > 1:
+        vocab = replicate_like(
+            torch.arange(table.shape[0], device=tokens.device), table)
+        one_hot = (tokens.long()[..., None] == vocab).to(table.dtype)
+        return torch.einsum("bsv,vd->bsd", one_hot, table).to(dtype)
+    return torch.nn.functional.embedding(tokens.long(), table).to(dtype)
 
 
 def _mlp_block(x, lp, cfg: LlamaConfig):
@@ -250,6 +294,7 @@ def _mlp_block(x, lp, cfg: LlamaConfig):
     gate = h @ lp["w_gate"]
     up = h @ lp["w_up"]
     h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+    h = with_sharding_constraint(h, ("batch", "seq", "mlp"))
     return x + (h @ lp["w_down"])
 
 
@@ -296,6 +341,122 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
         vs.append(v.to(cfg.dtype))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.stack(ks), torch.stack(vs)
+
+
+# ------------------------------------------------------------ dense decode
+def _decode_layer(x, lp, ck, cv, pos, cos, sin, mask, cfg: LlamaConfig):
+    """One decoder layer of a single dense decode step, shared by
+    decode_step and decode_step_unrolled.  ck/cv: [b, max_len, kvh, hd];
+    the current token's K/V row is written IN PLACE at each sequence's pos
+    (clamped to the last row, as the reference's dynamic_update_slice
+    clamps).  GQA folds the queries into [kv group, rep] and reads each
+    group's cache without repeating it; scores in f32, masked to -1e30
+    outside `mask`.  Returns x."""
+    b = x.shape[0]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    q, k, v = _qkv(x, lp, cfg)
+    p = pos.long().clamp(max=ck.shape[1] - 1)
+    q = apply_rope(q, cos, sin, positions=p[:, None])
+    k = apply_rope(k, cos, sin, positions=p[:, None])
+    rows = torch.arange(b, device=x.device)
+    ck[rows, p] = k[:, 0].to(cfg.dtype)
+    cv[rows, p] = v[:, 0].to(cfg.dtype)
+    qg = q.reshape(b, 1, cfg.n_kv_heads, n_rep, cfg.head_dim)
+    a = _gqa_scores(qg, ck) * cfg.head_dim ** -0.5
+    a = a.masked_fill(~mask[:, None, None, None, :], -1e30)
+    probs = torch.softmax(a, dim=-1).to(cfg.dtype)
+    o = _gqa_values(probs, cv)
+    x = x + (o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ lp["wo"])
+    return _mlp_block(x, lp, cfg)
+
+
+def _strided_groups(cache: torch.Tensor) -> bool:
+    """Whether the dense decode reads a 16-bit CUDA cache in place, one
+    strided bmm per KV group: the whole [b, max_len, kvh, hd] leaf is then
+    never copied (a permuted einsum operand or an f32 upcast would copy
+    it at every layer and step)."""
+    return cache.is_cuda and cache.dtype != torch.float32
+
+
+def _gqa_scores(qg: torch.Tensor, ck: torch.Tensor) -> torch.Tensor:
+    """f32 scores [b, g, r, 1, max_len] of the folded queries qg [b, 1, g,
+    r, hd] against the cache ck [b, max_len, g, hd]: the reference's
+    preferred_element_type=f32 (products of the operand type summed and
+    returned in f32).  Off the strided route the operands go to f32 first,
+    which gives the same products."""
+    if not _strided_groups(ck):
+        return torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), ck.float())
+    return torch.stack([torch.bmm(qg[:, 0, g], ck[:, :, g].transpose(1, 2),
+                                  out_dtype=torch.float32)
+                        for g in range(ck.shape[2])], 1)[:, :, :, None]
+
+
+def _gqa_values(probs: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """o [b, 1, g, r, hd] = probs [b, g, r, 1, max_len] (the cache dtype)
+    against the cache cv [b, max_len, g, hd], in the cache dtype."""
+    if not _strided_groups(cv):
+        return torch.einsum("bgrqk,bkgd->bqgrd", probs, cv)
+    return torch.stack([torch.bmm(probs[:, g, :, 0], cv[:, :, g])
+                        for g in range(cv.shape[2])], 1)[:, None]
+
+
+def init_kv_cache_leaves(cfg: LlamaConfig, batch: int, max_len: int,
+                         device=None) -> dict:
+    """Per-layer dense cache leaves for decode_step_unrolled: separate [b,
+    max_len, kvh, hd] tensors per layer, written in place, and pos [b]."""
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": [torch.zeros(shape, dtype=cfg.dtype, device=device)
+                  for _ in range(cfg.n_layers)],
+            "v": [torch.zeros(shape, dtype=cfg.dtype, device=device)
+                  for _ in range(cfg.n_layers)],
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def decode_step_unrolled(params: dict, cache: dict, tokens: torch.Tensor,
+                         cfg: LlamaConfig, rope=None
+                         ) -> tuple[torch.Tensor, dict]:
+    """One dense decode step over per-layer cache leaves
+    (init_kv_cache_leaves).  tokens [b]: each sequence's current token.
+    Writes each layer's new K/V row and advances cache["pos"] by one, IN
+    PLACE (returns `cache` itself; the reference returns a new cache).
+    `rope` optionally passes (cos, sin) tables over max_len positions.
+    Returns (logits [b, vocab] f32, cache)."""
+    max_len = cache["k"][0].shape[1]
+    pos = cache["pos"]
+    x = embed_lookup(params["embed"], tokens[:, None], cfg.dtype)
+    if rope is None:
+        rope = rope_frequencies(cfg.head_dim, max_len, cfg.rope_theta,
+                                device=x.device)
+    cos, sin = rope
+    mask = (torch.arange(max_len, device=x.device)[None, :]
+            <= pos[:, None])
+    for lid in range(cfg.n_layers):
+        x = _decode_layer(x, _layer(params, lid), cache["k"][lid],
+                          cache["v"][lid], pos, cos, sin, mask, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    pos.add_(1)
+    return (x[:, 0] @ params["lm_head"]).float(), cache
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  device=None) -> dict:
+    """Stacked dense cache: k/v [L, b, max_len, kvh, hd] and pos [b]."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                cfg: LlamaConfig) -> tuple[torch.Tensor, dict]:
+    """One dense decode step over the stacked cache (init_kv_cache): the
+    layers of decode_step_unrolled on views of the [L, ...] tensors, so
+    the rows land in the stacked cache IN PLACE.  Returns (logits [b,
+    vocab] f32, cache)."""
+    leaves = {"k": list(cache["k"].unbind(0)),
+              "v": list(cache["v"].unbind(0)), "pos": cache["pos"]}
+    logits, _ = decode_step_unrolled(params, leaves, tokens, cfg)
+    return logits, cache
 
 
 def init_paged_kv_cache(cfg: LlamaConfig, batch: int, n_pages: int,
@@ -480,6 +641,10 @@ def _attention_block(x, lp, cfg: LlamaConfig, cos, sin):
     q, k, v = _qkv(x, lp, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    # On a mesh, attention runs on each rank's shards: lay q, k and v out
+    # alike, batch and heads split, so every shard is a whole problem.
+    q, k, v = (with_sharding_constraint(t, ("batch", "seq", "heads", None))
+               for t in (q, k, v))
     o = attention(q, k, v, causal=True)
     return x + (o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp["wo"])
 
@@ -507,16 +672,22 @@ def run_trunk(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     remat_policy(cfg) when cfg.remat.  The layer leaves are unbound once,
     so the backward stacks each leaf's gradient in one pass.
     `layer_fn(x, lp, cos, sin, aux) -> (x, aux)` is the layer body.
+    On DTensor parameters the activations are constrained to the
+    reference's layouts (batch over data x fsdp, logits' vocab over
+    tensor) and the constant tables are replicated on the params' mesh.
     Returns (logits f32, aux)."""
     _, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, cfg.dtype)
-    cos, sin = rope_frequencies(cfg.head_dim, s, cfg.rope_theta,
-                                device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = with_sharding_constraint(x, ("batch", "seq", None))
+    cos, sin = (replicate_like(t, x) for t in rope_frequencies(
+        cfg.head_dim, s, cfg.rope_theta, device=x.device))
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
     stacked = [params["layers"][k].unbind(0) for k in LAYER_KEYS]
 
     def body(x, aux, *leaves):
-        return layer_fn(x, dict(zip(LAYER_KEYS, leaves)), cos, sin, aux)
+        x, aux = layer_fn(x, dict(zip(LAYER_KEYS, leaves)), cos, sin, aux)
+        return with_sharding_constraint(x, ("batch", "seq", None)), aux
 
     policy = remat_policy(cfg) if cfg.remat else None
     for lid in range(cfg.n_layers):
@@ -529,7 +700,8 @@ def run_trunk(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                 context_fn=functools.partial(
                     create_selective_checkpoint_contexts, policy))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), aux
+    logits = (x @ params["lm_head"]).float()
+    return with_sharding_constraint(logits, ("batch", "seq", "vocab")), aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig

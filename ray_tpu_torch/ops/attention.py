@@ -7,10 +7,17 @@ kernels mask the ragged edge, so the TPU's seq % 128 and head_dim % 128
 tiling gates do not apply.  Any other CUDA call raises.  CPU tensors take
 the plain version, `xla_attention`, as the reference does off-TPU; both
 paths carry gradients.
+
+DTensor inputs (the sharded train step) split batch and heads only, so
+every shard is a whole attention problem: the local shards go through the
+same dispatch (the flash kernels on CUDA) and the result is wrapped back
+on the mesh with q's placements, so no rank gathers q, k or v.
 """
 from __future__ import annotations
 
 import torch
+
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 
@@ -55,7 +62,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True,
               q_offset: int | torch.Tensor = 0) -> torch.Tensor:
     """Multi-head attention with GQA: the flash kernel on CUDA, the plain
-    version on the CPU."""
+    version on the CPU, on the local shards for DTensors."""
+    if isinstance(q, DTensor):
+        return _local_attention(q, k, v, causal, q_offset)
     if not q.is_cuda:
         return xla_attention(q, k, v, causal=causal, q_offset=q_offset)
     if (causal and q.shape[1] == k.shape[1] and q.shape[-1] in HEAD_DIMS
@@ -65,3 +74,22 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "attention on CUDA takes causal self-attention (q_len == k_len, "
         f"q_offset 0) with head_dim in {HEAD_DIMS}; got q {tuple(q.shape)}, "
         f"k {tuple(k.shape)}, causal={causal}, q_offset={q_offset!r}")
+
+
+def _local_attention(q, k, v, causal, q_offset):
+    """attention() on each rank's shards.  q, k and v must carry the same
+    placements, each Replicate or a Shard of the batch (0) or heads (2)
+    dim; a split sequence would need ring attention (not ported)."""
+    place = tuple(q.placements)
+    if tuple(k.placements) != place or tuple(v.placements) != place:
+        raise ValueError(f"attention: q, k and v placements differ: {place}, "
+                         f"{tuple(k.placements)}, {tuple(v.placements)}")
+    if not all(p == Replicate() or p in (Shard(0), Shard(2)) for p in place):
+        raise NotImplementedError(
+            f"attention on placements {place}: only the batch and heads "
+            "dims may be sharded (ring attention is not ported)")
+    o = attention(q.to_local(), k.to_local(), v.to_local(), causal,
+                  q_offset)
+    return DTensor.from_local(o.contiguous(), q.device_mesh, place,
+                              run_check=False, shape=q.shape,
+                              stride=q.stride())

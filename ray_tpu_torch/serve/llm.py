@@ -1,5 +1,5 @@
-"""Continuous-batched LLM engine over the paged KV pool (port of the
-paged mode of ray_tpu/serve/llm.py's LLMEngine).
+"""Continuous-batched LLM engine over the paged KV pool or a dense cache
+(port of ray_tpu/serve/llm.py's LLMEngine).
 
 The path: submit / generate -> wave admission (radix prefix match, block
 reservation with copy-on-write) -> paged prefill (flash kernel on CUDA)
@@ -47,13 +47,21 @@ reservation with copy-on-write) -> paged prefill (flash kernel on CUDA)
     resident tensors (the engine's own copy of the weights) between
     windows, so the captured graphs decode with the new weights; the
     swap flushes the radix tree.
+  - Dense mode (paged=False): per-layer [max_batch, max_len, kvh, hd]
+    cache leaves (models/llama.init_kv_cache_leaves) instead of the pool.
+    A wave's prefill writes each layer's rows with one indexed write and
+    sets pos to the true lengths; the K-step window runs
+    llama.decode_step_unrolled (einsum attention, no kernel) through the
+    same persistent tensors and capture-and-replay as the paged window.
+    As in the reference there is no prefix cache, preemption, LoRA bank,
+    KV export / import or graft in this mode.
 
 Kill switches shared with the reference: RAY_TPU_PREFIX_CACHE=0 disables
 prefix matching, RAY_TPU_KV_PREEMPT=0 restores full-span up-front
 allocation, RAY_TPU_RL_WEIGHT_SYNC=0 drops weight updates (read per
 call), RAY_TPU_PREFIX_STORE=0 stops demotion (read per scan).  Not
-ported yet (see ROADMAP.md): the dense engine, the metrics, tracing,
-memory-ledger and failpoint hooks, capturing prefill.
+ported yet (see ROADMAP.md): the metrics, tracing, memory-ledger and
+failpoint hooks, capturing prefill.
 
 LLMServer, the serve deployment body, wraps one engine: the request path
 (__call__, stream), the PD pool roles, adapter page-in, the tier-2 prefix
@@ -211,7 +219,8 @@ class _WindowGraph:
 
 
 class LLMEngine:
-    """Continuous-batching paged decode engine over llama-family params.
+    """Continuous-batching decode engine over llama-family params, on the
+    paged KV pool or (paged=False) a dense per-slot cache.
 
     Runs on `device` ("cuda" unless the caller passes "cpu"); on a machine
     without CUDA the default raises RuntimeError rather than running on
@@ -224,8 +233,8 @@ class LLMEngine:
 
     def __init__(self, cfg, params=None, *, max_batch: int = 8,
                  max_len: int | None = None, seed: int = 0,
-                 steps_per_sync: int = 8, page_size: int = 512,
-                 kv_pages: int | None = None,
+                 steps_per_sync: int = 8, paged: bool = True,
+                 page_size: int = 512, kv_pages: int | None = None,
                  prefix_cache: bool | None = None,
                  kv_preempt: bool | None = None,
                  lora_slots: int = 0, lora_rank: int = 0,
@@ -254,39 +263,52 @@ class LLMEngine:
             params = _tree_map(
                 lambda t: as_tensor(t).to(self.device, copy=True), params)
         self.params = params
-        self._prefix_cache = (prefix_cache if prefix_cache is not None
-                              else env_on("RAY_TPU_PREFIX_CACHE"))
-        self._preempt_on = (kv_preempt if kv_preempt is not None
-                            else env_on("RAY_TPU_KV_PREEMPT"))
-        # Shared page pool: device memory holds the page budget, not
-        # max_len x slots.  Page 0 is the trash page idle slots point at.
-        self.page = page_size
-        self._maxp = -(-self.max_len // page_size)
-        if kv_pages is None:
-            kv_pages = 1 + max_batch * (
-                -(-min(self.max_len, 4096) // page_size))
-        self.n_pages = kv_pages
-        self.cache = llama.init_paged_kv_cache(cfg, max_batch, kv_pages,
-                                               page_size, self.device)
-        self._mgr = BlockManager(kv_pages - 1, page_size,
-                                 prefix_cache=self._prefix_cache)
-        self._table = np.zeros((max_batch, self._maxp), np.int32)
+        self.paged = paged
+        self._prefix_cache = paged and (
+            prefix_cache if prefix_cache is not None
+            else env_on("RAY_TPU_PREFIX_CACHE"))
+        self._preempt_on = paged and (
+            kv_preempt if kv_preempt is not None
+            else env_on("RAY_TPU_KV_PREEMPT"))
+        if paged:
+            # Shared page pool: device memory holds the page budget, not
+            # max_len x slots.  Page 0 is the trash page idle slots point
+            # at.
+            self.page = page_size
+            self._maxp = -(-self.max_len // page_size)
+            if kv_pages is None:
+                kv_pages = 1 + max_batch * (
+                    -(-min(self.max_len, 4096) // page_size))
+            self.n_pages = kv_pages
+            self.cache = llama.init_paged_kv_cache(cfg, max_batch, kv_pages,
+                                                   page_size, self.device)
+            self._mgr = BlockManager(kv_pages - 1, page_size,
+                                     prefix_cache=self._prefix_cache)
+            self._table = np.zeros((max_batch, self._maxp), np.int32)
+            rope_len = self._maxp * page_size
+            # Decode tails [B, kvh, K, hd] per layer, allocated once and
+            # reused: rows a window has not written yet are masked, and
+            # stay finite.  A smaller live window uses the first K columns.
+            tshape = (max_batch, cfg.n_kv_heads, self.steps_per_sync,
+                      cfg.head_dim)
+            self._tails = {kk: [torch.zeros(tshape, dtype=cfg.dtype,
+                                            device=self.device)
+                                for _ in range(cfg.n_layers)]
+                           for kk in ("k", "v")}
+        else:
+            # Dense per-layer cache leaves, written in place by the wave
+            # prefill and every decode step.
+            self.cache = llama.init_kv_cache_leaves(cfg, max_batch,
+                                                    self.max_len, self.device)
+            self._mgr = None
+            rope_len = self.max_len
         self._buckets = _buckets_for(self.max_len)
         self._chunk = min(16, max_batch)
         self._width_buckets = sorted({w for w in (1, 8, self._chunk)
                                       if w <= max_batch})
-        # RoPE tables over the whole paged window, built once.
-        self._rope = rope_frequencies(cfg.head_dim, self._maxp * page_size,
+        # RoPE tables over every cache position, built once.
+        self._rope = rope_frequencies(cfg.head_dim, rope_len,
                                       cfg.rope_theta, device=self.device)
-        # Decode tails [B, kvh, K, hd] per layer, allocated once and reused:
-        # rows a window has not written yet are masked, and stay finite.  A
-        # smaller live window uses the first K columns.
-        tshape = (max_batch, cfg.n_kv_heads, self.steps_per_sync,
-                  cfg.head_dim)
-        self._tails = {kk: [torch.zeros(tshape, dtype=cfg.dtype,
-                                        device=self.device)
-                            for _ in range(cfg.n_layers)]
-                       for kk in ("k", "v")}
         self._seed_key = int(_mix32(torch.tensor(seed + 1)).item())
         self._vocab_ids = torch.arange(cfg.vocab_size, device=self.device)
 
@@ -296,6 +318,10 @@ class LLMEngine:
         self.lora_slots = max(0, int(lora_slots))
         self.lora_rank = int(lora_rank) if self.lora_slots else 0
         if self.lora_slots:
+            if not paged:
+                raise ValueError(
+                    "lora_slots > 0 requires a paged engine (adapter "
+                    "KV identity is radix/page-granular)")
             if self.lora_rank < 1:
                 raise ValueError(
                     "lora_slots > 0 requires lora_rank >= 1 (bank "
@@ -340,12 +366,13 @@ class LLMEngine:
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
         self._cur = dev_zeros((max_batch,), torch.int32)
-        self._table_dev = dev_zeros((max_batch, self._maxp), torch.int32)
+        self._table_dev = dev_zeros((max_batch, self._maxp), torch.int32) \
+            if paged else None
         self._temps_dev = dev_zeros((max_batch,), torch.float32)
         self._seeds_dev = dev_zeros((max_batch,), torch.int32)
         self._starts_dev = dev_zeros((max_batch,), torch.int32)
         self._lanes_dev = dev_zeros((max_batch,), torch.int32)
-        self._table_dirty = True
+        self._table_dirty = paged
         # Captured windows by size K, the side stream they are warmed up
         # and captured on, and the lock that orders window dispatch against
         # bank writes from caller threads.
@@ -426,6 +453,10 @@ class LLMEngine:
         resumes from.  With `model_id`, the request decodes under that
         LoRA adapter (resident by admission time, or the future fails
         with AdapterLoadError) and its KV keys on the adapter's salt."""
+        if prefill_only and not self.paged:
+            raise ValueError(
+                "prefill_only requires a paged engine (KV export is "
+                "page-granular)")
         if model_id is not None and self._lora_banks is None:
             raise AdapterLoadError(
                 "engine has no adapter slots (set lora_slots)",
@@ -439,12 +470,13 @@ class LLMEngine:
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_len {self.max_len}; "
                 "decode past the cache end would corrupt output")
-        need = -(-(len(prompt) + max_new_tokens) // self.page)
-        if need > self.n_pages - 1:
-            raise ValueError(
-                f"request needs {need} KV pages but the pool holds "
-                f"{self.n_pages - 1}; raise kv_pages (admission would "
-                "otherwise block forever)")
+        if self.paged:
+            need = -(-(len(prompt) + max_new_tokens) // self.page)
+            if need > self.n_pages - 1:
+                raise ValueError(
+                    f"request needs {need} KV pages but the pool holds "
+                    f"{self.n_pages - 1}; raise kv_pages (admission would "
+                    "otherwise block forever)")
         if self._error is not None:
             raise RuntimeError(
                 "LLM engine is dead after an earlier failure") \
@@ -490,6 +522,8 @@ class LLMEngine:
         exporter's `sample_seed` the continued sample stream is the one
         an uninterrupted run draws.  The result's `tokens` include the
         ones passed in."""
+        if not self.paged:
+            raise ValueError("kv_import requires a paged engine")
         if not tokens:
             raise ValueError("kv_import needs at least the first "
                              "generated token")
@@ -551,7 +585,7 @@ class LLMEngine:
             min_idle=max(0, int(min_idle)),
             period_s=max(0.01, float(period_s)),
             watermark=int(max(0.0, float(watermark_frac))
-                          * (self.n_pages - 1)),
+                          * (self.n_pages - 1)) if self.paged else 0,
             limit=max(1, int(limit)),
             max_inflight=max(1, int(max_inflight)))
         with self._demote_lock:
@@ -569,6 +603,8 @@ class LLMEngine:
         {"grafted": 0, "reason"}.  A `weight_version` other than the
         engine's at application time never grafts.  `salt` keys the
         radix entry per (adapter, version); 0 = base model."""
+        if not self.paged:
+            raise ValueError("kv_graft requires a paged engine")
         if kv_len <= 0 or kv_len % self.page != 0:
             raise ValueError(
                 f"kv_len {kv_len} must be a positive multiple of the "
@@ -805,10 +841,11 @@ class LLMEngine:
                 old.copy_(as_tensor(new))
             self.weight_version = version
         self.weight_updates += 1
-        self._cache_gen += 1
-        self._mgr.flush()
-        with self._demote_lock:
-            self._demote_skip.clear()
+        if self._mgr is not None:
+            self._cache_gen += 1
+            self._mgr.flush()
+            with self._demote_lock:
+                self._demote_skip.clear()
         self.last_weight_sync_ms = (time.perf_counter() - staged_t) * 1e3
 
     def params_snapshot(self):
@@ -827,7 +864,9 @@ class LLMEngine:
         request meets no first-use cost (on CUDA: the kernels' load and
         the default window's graph).  Warmup traffic bypasses the prefix
         cache (_cache_ok=False)."""
-        cap = min(self.max_len - 1, (self.n_pages - 1) * self.page - 1)
+        cap = self.max_len - 1
+        if self.paged:
+            cap = min(cap, (self.n_pages - 1) * self.page - 1)
         for b in buckets or self._buckets:
             n = min(b, cap)
             if n >= 1:
@@ -923,7 +962,8 @@ class LLMEngine:
         ride the tails and merge into the pages once at the end.  Returns
         the [K, B] token block on the device without waiting for it:
         nothing here reads a device value on the host.  On CUDA the
-        window is a replay of its captured graph after its first use."""
+        window is a replay of its captured graph after its first use.
+        Dense engines run the same way over their cache leaves."""
         K = k_win or self._k_live
         starts = np.zeros((self.max_batch,), np.int32)
         for i in active:
@@ -956,6 +996,9 @@ class LLMEngine:
         uploaded inputs, writes the token block into `seq` and the new
         pos and current tokens in place.  Everything it allocates is
         dead when it returns (a captured graph's private pool)."""
+        if not self.paged:
+            self._window_body_dense(K, seq)
+            return
         cfg = self.cfg
         ts = self.cache["pos"]
         pages = {"k": self.cache["k"], "v": self.cache["v"]}
@@ -974,6 +1017,19 @@ class LLMEngine:
                 merge_tail_pages(pages[kk][li], self._tails[kk][li],
                                  self._table_dev, ts, K)
         ts.copy_(pos)
+        self._cur.copy_(toks)
+
+    def _window_body_dense(self, K: int, seq: torch.Tensor):
+        """Dense window (the reference's _decode_k_dense): K steps of
+        decode_step_unrolled, each writing its K/V rows into the cache
+        leaves and advancing cache["pos"] in place."""
+        toks = self._cur
+        for j in range(K):
+            logits, _ = llama.decode_step_unrolled(
+                self.params, self.cache, toks, self.cfg, rope=self._rope)
+            toks = self._sample_rows(logits, self._temps_dev,
+                                     self._seeds_dev, self._starts_dev + j)
+            seq[j] = toks
         self._cur.copy_(toks)
 
     def _capture(self, K: int) -> _WindowGraph:
@@ -1089,16 +1145,17 @@ class LLMEngine:
                 # admitting -- never a head-of-line barrier.
                 self._pending.popleft()
                 continue
-            # The block pool is the admission control: the FRONT request
-            # blocks FIFO when free + evictable can't cover it.
-            if not self._reserve_blocks(req, copies):
-                if req.lora_slot:
-                    with self._lora_lock:      # not decoding after all
-                        self._adapters[free] = 0
-                break
-            self._table[free, :] = 0
-            self._table[free, :len(req.pages)] = req.pages
-            self._table_dirty = True
+            if self.paged:
+                # The block pool is the admission control: the FRONT
+                # request blocks FIFO when free + evictable can't cover it.
+                if not self._reserve_blocks(req, copies):
+                    if req.lora_slot:
+                        with self._lora_lock:      # not decoding after all
+                            self._adapters[free] = 0
+                    break
+                self._table[free, :] = 0
+                self._table[free, :len(req.pages)] = req.pages
+                self._table_dirty = True
             self._pending.popleft()
             req.slot = free
             req.admitted_at = time.perf_counter()
@@ -1180,7 +1237,9 @@ class LLMEngine:
         return a, padded_w, bucket
 
     def _prefill_chunk_full(self, chunk):
-        """Full-prompt prefill (no cached prefix in the chunk)."""
+        """Full-prompt prefill (no cached prefix in the chunk).  Dense
+        engines write each layer's rows into the chunk's slots with one
+        indexed write and set pos to the true lengths."""
         a, W, bucket = self._wave_arrays(
             chunk, [len(r.prompt) + len(r.tokens) for _, r in chunk])
         hidden, ks, vs = llama.prefill(self.params, self._dev(a["tokens"]),
@@ -1189,10 +1248,17 @@ class LLMEngine:
         rows_idx = self._dev(a["last"].astype(np.int64))
         last_h = hidden[torch.arange(W, device=self.device), rows_idx]
         nxt = self._first_token(last_h, a["temps"], a["seeds"], a["starts"])
+        slots = self._dev(a["slots"].astype(np.int64))
+        if not self.paged:
+            for leaf, src in ((self.cache["k"], ks), (self.cache["v"], vs)):
+                for li in range(self.cfg.n_layers):
+                    leaf[li][slots, :bucket] = src[li]
+            self.cache["pos"][slots] = self._dev(a["lens"])
+            self._cur[slots] = nxt
+            return nxt
         cols = np.arange(bucket) // self.page
         page_ids = self._table[a["slots"]][:, cols]
         rows = np.tile(np.arange(bucket, dtype=np.int32) % self.page, (W, 1))
-        slots = self._dev(a["slots"].astype(np.int64))
         llama.scatter_prefill_pages(self.cache, ks, vs, self._dev(page_ids),
                                     self._dev(rows), slots,
                                     self._dev(a["lens"]))
@@ -1557,6 +1623,8 @@ class LLMEngine:
         if k_win is None:
             k_win = self._k_live
         active = [i for i, s in enumerate(self._slots) if s is not None]
+        if not self.paged:
+            return active
         for slot in sorted(active,
                            key=lambda i: self._slots[i].sample_seed):
             req = self._slots[slot]
@@ -1650,7 +1718,9 @@ class LLMEngine:
     # ------------------------------------------------------------- probes
     def kv_check(self) -> dict:
         """Assert the block-state partition: raises if any KV block is
-        leaked or double-booked."""
+        leaked or double-booked.  A dense engine has no blocks."""
+        if self._mgr is None:
+            return {"ok": True, "paged": False}
         self._mgr.check()
         return {"ok": True, "free": self._mgr.free_count(),
                 "available": self._mgr.available()}
@@ -1670,7 +1740,6 @@ class LLMEngine:
                 for k, g in list(self._graphs.items())}
 
     def stats(self) -> dict:
-        kv = self._mgr.stats()
         out = {"completed": self.completed,
                "active": sum(s is not None for s in self._slots),
                "waiting": self._waiting.qsize() + len(self._pending),
@@ -1700,13 +1769,7 @@ class LLMEngine:
                "graph_replays": self.graph_replays,
                "graph_captures": len(self._graphs),
                "graph_capture_s": sum(g.capture_s
-                                      for g in list(self._graphs.values())),
-               "kv": kv,
-               "prefix_hits": kv["hits"],
-               "prefix_misses": kv["misses"],
-               "prefix_hit_tokens": kv["hit_tokens"],
-               "evictions": kv["evictions"],
-               "cow_copies": kv["cow_copies"]}
+                                      for g in list(self._graphs.values()))}
         if self._lora_banks is not None:
             with self._lora_lock:
                 now = time.monotonic()
@@ -1719,17 +1782,19 @@ class LLMEngine:
                         mid: {"salt": m["salt"], "version": m["version"],
                               "age": round(now - m["last_used"], 3)}
                         for mid, m in self._lora_meta.items()}}
+        if self._mgr is not None:
+            kv = self._mgr.stats()
+            out.update(kv=kv, prefix_hits=kv["hits"],
+                       prefix_misses=kv["misses"],
+                       prefix_hit_tokens=kv["hit_tokens"],
+                       evictions=kv["evictions"],
+                       cow_copies=kv["cow_copies"])
         return out
 
 
-_DENSE_NOT_PORTED = (
-    "paged=False needs the dense engine, which the port does not have yet "
-    "(ROADMAP.md queue 1 item 2); serve with the paged engine")
-
-
 class LLMServer:
-    """Serve deployment body: one paged engine per replica (port of
-    ray_tpu/serve/llm.py's LLMServer).
+    """Serve deployment body: one engine per replica, paged or (paged=False)
+    dense (port of ray_tpu/serve/llm.py's LLMServer).
 
     Requests are dicts with a token-id "prompt" and the optional
     "max_new_tokens", "temperature", "eos_id", "model_id", "disagg" and
@@ -1763,11 +1828,10 @@ class LLMServer:
     only an in-process directory (`lora_directory`, `prefix_store`'s
     "directory") or return their defaults.
 
-    Not ported: the dense engine (`paged=False` raises
-    NotImplementedError after the role checks), and the reference's engine
-    metrics, tracing spans, memory-ledger tags and failpoints
-    (serve.adapter_load and the spans of the adapter load, shed/restore
-    and KV put and pull); tests inject faults through fakes instead."""
+    Not ported: the reference's engine metrics, tracing spans,
+    memory-ledger tags and failpoints (serve.adapter_load and the spans of
+    the adapter load, shed/restore and KV put and pull); tests inject
+    faults through fakes instead."""
 
     # Adapter requests re-page and resubmit this many times in all when a
     # concurrent tenant's load evicts their adapter between the page-in
@@ -1794,8 +1858,6 @@ class LLMServer:
             raise ValueError(
                 "role='prefill' requires a paged engine (KV migration "
                 "is page-granular)")
-        if not paged:
-            raise NotImplementedError(_DENSE_NOT_PORTED)
         self._device = resolve_device(device, "LLMServer")
         self._runtime = runtime or ServeRuntime()
         cfg = llama.llama_configs()[model] if isinstance(model, str) \
@@ -1862,13 +1924,13 @@ class LLMServer:
             self.engine.warmup()
 
     def _new_engine(self, kwargs: dict) -> LLMEngine:
-        kw = {k: v for k, v in kwargs.items() if k != "paged"}
-        return LLMEngine(self._cfg, self._params, device=self._device, **kw)
+        return LLMEngine(self._cfg, self._params, device=self._device,
+                         **kwargs)
 
     def _install_prefix_store(self) -> None:
         """(Re)attach the prefix-store client and demotion hook to the
         current engine (constructor and every reconfigure rebuild).
-        Disabled for prefix_cache=0 engines and by
+        Disabled for dense engines, prefix_cache=0 engines and by
         prefix_store={"enabled": False}."""
         if self._prefix_client is not None:
             self._prefix_client.close()
@@ -2033,6 +2095,7 @@ class LLMServer:
     def _disagg(self, request: dict) -> bool:
         return (self._role == "prefill"
                 and self._decode_dep is not None
+                and self.engine.paged
                 and pd_disagg_on()
                 and request.get("disagg", True)
                 and request.get("max_new_tokens", 32) > 1)
@@ -2347,8 +2410,6 @@ class LLMServer:
             raise ValueError(
                 "role='prefill' requires a paged engine (KV migration "
                 "is page-granular)")
-        if not kwargs.get("paged", True):
-            raise NotImplementedError(_DENSE_NOT_PORTED)
 
         def commit_roles():
             self._role = new_role

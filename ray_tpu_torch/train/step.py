@@ -18,7 +18,18 @@ optax chain (clip_by_global_norm -> adamw) exactly:
 Unlike the reference's pure step, the port updates parameters and
 optimizer state IN PLACE: the returned state is the same object.
 Entry points run on CUDA unless the caller passes device="cpu".
-Sharded training (`sharded_train_step`) is not ported yet.
+
+Sharded training (port of ray_tpu/train/step.py:92-201): on a DeviceMesh
+(parallel/mesh.py) the parameters and the AdamW moments are DTensors
+placed by the logical-axis rules (parallel/sharding.py), the batch is
+split over data x fsdp, and `sharded_train_step` runs the same in-place
+step on them: DTensor's op propagation inserts the collectives that GSPMD
+inserts in the reference, attention runs on each rank's shards, each
+gradient is laid out like its parameter before the update, and the clip
+reads the norm of the whole gradient.  The data, fsdp and tensor axes
+train in any combination; stage, seq and expert > 1 raise
+NotImplementedError (pipeline, ring attention and MoE are ROADMAP.md
+queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -26,10 +37,15 @@ import dataclasses
 import math
 from typing import Callable
 
+import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.parallel.sharding import (NamedSharding, logical_sharding,
+                                             param_shardings, tree_map)
 
 ADAM_EPS = 1e-8          # optax.adamw's default, outside the square root
 
@@ -88,6 +104,12 @@ class ClippedAdamW:
         place.  Returns the pre-clip global norm (f32, on the device; no
         host sync)."""
         leaves = param_leaves(params)
+        for p in leaves:
+            if isinstance(p.grad, DTensor) \
+                    and tuple(p.grad.placements) != tuple(p.placements):
+                # A sharded gradient arrives as a partial sum or in another
+                # layout: reduce it to the parameter's, as GSPMD does.
+                p.grad = p.grad.redistribute(p.device_mesh, p.placements)
         grads = [p.grad for p in leaves]
         gnorm = global_norm(grads)
         scale = torch.where(gnorm < self.grad_clip, torch.ones_like(gnorm),
@@ -114,9 +136,14 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32."""
-    return torch.linalg.vector_norm(torch.stack([
-        torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]))
+    """sqrt of the sum of squares of every element, in f32.  A DTensor's
+    norm is read whole (a reduction over its shards), so every rank sees
+    the norm of the full gradient."""
+    def norm(t):
+        n = torch.linalg.vector_norm(t, dtype=torch.float32)
+        return n.full_tensor() if isinstance(n, DTensor) else n
+
+    return torch.linalg.vector_norm(torch.stack([norm(t) for t in tensors]))
 
 
 def create_train_state(seed: int, cfg: llama.LlamaConfig,
@@ -165,3 +192,142 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: ClippedAdamW,
                        "step": state.step}
 
     return step
+
+
+# ------------------------------------------------------- sharded wrappers
+UNPORTED_AXES = ("stage", "seq", "expert")
+
+
+def _axis_size(mesh: DeviceMesh, axis: str) -> int:
+    names = list(mesh.mesh_dim_names or ())
+    return mesh.size(names.index(axis)) if axis in names else 1
+
+
+def _check_mesh(mesh: DeviceMesh) -> None:
+    big = {a: _axis_size(mesh, a) for a in UNPORTED_AXES
+           if _axis_size(mesh, a) > 1}
+    if big:
+        raise NotImplementedError(
+            f"mesh axes {big}: pipeline (stage), ring attention (seq) and "
+            "MoE (expert) layouts are not ported (ROADMAP.md queue 1 item "
+            "6); the data, fsdp and tensor axes train")
+
+
+def state_shardings(cfg: llama.LlamaConfig, mesh: DeviceMesh,
+                    optimizer: ClippedAdamW) -> TrainState:
+    """NamedShardings (mesh, placements) for a TrainState: params follow
+    the logical-axes table, each AdamW moment tree ("mu", "nu") mirrors
+    the params, the update count and the step replicate.  Raises on a
+    mesh whose stage, seq or expert axis is > 1, as sharded_train_step
+    does."""
+    _check_mesh(mesh)
+    p_sh = param_shardings(model_module(cfg).param_logical_axes(cfg), mesh)
+    replicated = NamedSharding(mesh, (Replicate(),) * mesh.ndim)
+    return TrainState(params=p_sh, opt_state={"mu": p_sh, "nu": p_sh,
+                                              "count": replicated},
+                      step=replicated)
+
+
+def batch_shardings(mesh: DeviceMesh) -> NamedSharding:
+    """One sharding for every batch leaf ([b, s] arrays): batch over data
+    x fsdp."""
+    return logical_sharding(mesh, ("batch", "seq"))
+
+
+def _full(x) -> torch.Tensor:
+    """A leaf as one whole tensor: a DTensor gathered, numpy converted."""
+    from ray_tpu_torch.models.convert import as_tensor
+
+    if isinstance(x, DTensor):
+        return x.full_tensor()
+    return as_tensor(x)
+
+
+def _state_tree(state: TrainState) -> dict:
+    """A TrainState as the tree `reshard_state` takes: params, the AdamW
+    moments "mu" / "nu" (zeros before the first update), "count" and
+    "step"."""
+    slots = {id(p): state.opt_state.state.get(p, {})
+             for p in param_leaves(state.params)}
+
+    def moment(key):
+        return tree_map(lambda p: slots[id(p)].get(key, torch.zeros_like(p)),
+                        state.params)
+
+    first = slots[id(param_leaves(state.params)[0])]
+    return {"params": tree_map(torch.Tensor.detach, state.params),
+            "mu": moment("exp_avg"), "nu": moment("exp_avg_sq"),
+            "count": float(first["step"]) if first else 0.0,
+            "step": state.step}
+
+
+def reshard_state(state, cfg: llama.LlamaConfig, optimizer: ClippedAdamW,
+                  mesh: DeviceMesh) -> TrainState:
+    """Lay a training state onto `mesh` by the logical-axis rules: a
+    TrainState of plain tensors or of DTensors on another mesh, or the
+    host tree of `models.convert.train_state_from_jax` (numpy or tensor
+    leaves: "params", "mu", "nu", "count", "step").  Every leaf is
+    gathered whole and distributed anew (every rank must call this), so
+    the same state on any mesh gives bitwise the same full tensors."""
+    tree = _state_tree(state) if isinstance(state, TrainState) else state
+    sh = state_shardings(cfg, mesh, optimizer)
+    shapes = llama.param_shapes(cfg)
+
+    def put(x, s, shape):
+        t = _full(x)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"reshard_state: leaf shape {tuple(t.shape)} "
+                             f"!= {tuple(shape)}")
+        t = t.to(device=mesh.device_type, dtype=cfg.dtype, copy=True)
+        return distribute_tensor(t, s.mesh, s.placements)
+
+    params = tree_map(put, tree["params"], sh.params, shapes)
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    opt = optimizer.init(params)
+    count = torch.tensor(float(np.asarray(_full(tree["count"]).cpu())))
+    moments = [param_leaves(tree_map(put, tree[k], sh.opt_state[k],
+                                      shapes)) for k in ("mu", "nu")]
+    for p, mu, nu in zip(param_leaves(params), *moments):
+        opt.state[p] = {"step": count.clone(), "exp_avg": mu,
+                        "exp_avg_sq": nu}
+    return TrainState(params=params, opt_state=opt,
+                      step=int(np.asarray(_full(tree["step"]).cpu())))
+
+
+def sharded_init(seed: int, cfg: llama.LlamaConfig, optimizer: ClippedAdamW,
+                 mesh: DeviceMesh) -> TrainState:
+    """create_train_state(seed) laid out on `mesh`: the full parameters
+    are drawn on every rank from the same seeded generator on the mesh's
+    device, then distributed, so any mesh gives bitwise the tensors of
+    the single-device state (the reference draws each shard in place)."""
+    full = create_train_state(seed, cfg, optimizer,
+                              device=mesh.device_type)
+    return reshard_state(full, cfg, optimizer, mesh)
+
+
+def sharded_train_step(cfg: llama.LlamaConfig, optimizer: ClippedAdamW,
+                       mesh: DeviceMesh,
+                       loss_fn: Callable | None = None) -> Callable:
+    """step(state, batch) -> (state, metrics) on a state laid out for
+    `mesh` (sharded_init / reshard_state): the batch's arrays (host
+    arrays or tensors holding the global batch, the same on every rank)
+    are split over data x fsdp, then make_train_step's in-place step runs
+    on the DTensors.  Metrics as make_train_step's; "loss" and
+    "grad_norm" read the same on every rank."""
+    _check_mesh(mesh)
+    b_sh = batch_shardings(mesh)
+    step = make_train_step(cfg, optimizer, loss_fn, device=mesh.device_type)
+
+    def sharded(state: TrainState, batch: dict):
+        batch = {k: v if isinstance(v, DTensor) else distribute_tensor(
+                     torch.as_tensor(v).to(mesh.device_type), b_sh.mesh,
+                     b_sh.placements)
+                 for k, v in batch.items()}
+        state, metrics = step(state, batch)
+        loss = metrics["loss"]
+        if isinstance(loss, DTensor):
+            metrics["loss"] = loss.full_tensor()
+        return state, metrics
+
+    return sharded

@@ -223,10 +223,14 @@ def test_role_errors_match_jax_server(m):
         with pytest.raises(ValueError) as port_err:
             _port(m, **kw)
         assert str(port_err.value) == str(ref_err.value), kw
-    # The dense engine is not ported: the role checks come first, then a
-    # pointer to the queue item.
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        _port(m, paged=False)
+    # Past the role checks, a dense server builds and serves.
+    dense = _port(m, paged=False)
+    try:
+        assert not dense.engine.paged
+        assert len(_run(dense({"prompt": PROMPT,
+                               "max_new_tokens": 3}))["tokens"]) == 3
+    finally:
+        dense.shutdown()
 
 
 def test_rejected_reconfigure_leaves_server_as_it_was(unified):
@@ -244,10 +248,15 @@ def test_rejected_reconfigure_leaves_server_as_it_was(unified):
             assert srv._role == "unified" and srv._decode_dep is None
             assert srv.engine is eng and srv._engine_kwargs["paged"]
     assert errors[:4] == errors[4:]
+    # A dense reconfigure is accepted (it rebuilds the engine), and the
+    # way back restores the configuration the server was built with.
     eng = port.engine
-    with pytest.raises(NotImplementedError, match="dense engine"):
-        port.reconfigure({"paged": False, "max_batch": 2})
-    assert port.engine is eng and port._engine_kwargs["max_batch"] == 4
+    port.reconfigure({"paged": False, "max_batch": 2})
+    assert port.engine is not eng and not port.engine.paged
+    assert len(_run(port({"prompt": PROMPT,
+                          "max_new_tokens": 3}))["tokens"]) == 3
+    port.reconfigure({"paged": True, "max_batch": 4})
+    assert port.engine.paged and port._engine_kwargs["max_batch"] == 4
     assert len(_run(port({"prompt": PROMPT,
                           "max_new_tokens": 3}))["tokens"]) == 3
 
