@@ -6,17 +6,18 @@ Phases, each printing one JSON line; any failure raises and exits 1:
 
   1. device   -- the card's name and power limit (nvidia-smi), and the
                  kernels built from csrc/ (one nvcc per source, together).
-  2. kernels  -- every kernel of the serving and training paths against
-                 its plain PyTorch version on the card, at the main paths'
-                 shapes in bf16 plus ragged and edge cases (head_dim 32,
-                 64 and 128): the error against the plain version computed
-                 in f32 from the same inputs, kernel / plain / library
-                 times and the bound.  The flash forward is timed at the
-                 8B wave and the `bench-350m` layer, the flash backward
-                 (dQ, dK/dV) at the `bench-350m` layer; the f32 routes
-                 (FMA kernels) at the `debug` training shapes; the paged
-                 kernel at the 8B decode state, at a long context and at
-                 batch 32.
+  2. kernels  -- every kernel of the serving, training and RLHF paths
+                 against its plain PyTorch version on the card, at the
+                 main paths' shapes in bf16 plus ragged and edge cases
+                 (head_dim 32, 64 and 128): the error against the plain
+                 version computed in f32 from the same inputs, kernel /
+                 plain / library times and the bound.  The flash forward
+                 is timed at the 8B wave, the `bench-350m` layer and the
+                 rlhf_350m scoring call, the flash backward (dQ, dK/dV) at
+                 the `bench-350m` layer and the rlhf_350m learner's; the
+                 f32 routes (FMA kernels) at the `debug` training shapes;
+                 the paged kernel at the 8B decode state, at a long
+                 context, at batch 32 and at the rlhf_350m decode state.
                  Each backward case must launch dQ and dK/dV once each on
                  its dtype's route, and every backward and paged case
                  gives the same bits when run again.
@@ -127,6 +128,41 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  tokens/s and MFU of both), and 24 launches a step of each
                  flash kernel on its bf16 route in both; then one sharded
                  step under torch.profiler (busy share, kernel groups).
+
+  7. rlhf_small_f32 -- the in-process online GRPO loop (`RLHFTrainer`,
+                 rollouts through the paged engine, the GRPO learner, live
+                 weight sync) at `debug` in f32 (TF32 off) on CUDA and on
+                 the CPU from the same params: engine max_batch 8, max_len
+                 128, page 16, K 3; 4 prompts of 10 tokens, groups of 4, 2
+                 prompts a step, 5 new tokens at temperature 1.0, lr 1e-2;
+                 three steps.  The trajectories' tokens and masks equal on
+                 both devices, each update's advantages and losses within
+                 1e-4, the first update's gradients within 1e-4 of the
+                 CPU's relative to each leaf's largest (the params after
+                 three steps are reported: Adam's eps lets f32 rounding
+                 pick the sign of some steps); every kernel on its
+                 f32 (FMA) route only, dQ and dK/dV once per layer per
+                 update; every window after the first a graph replay,
+                 across each weight swap; the engine's weight_version the
+                 learner's after every step.  A save_async taken before an
+                 update, loaded into a fresh learner, gives the saved
+                 state to the bit.
+  7b. rlhf_350m -- the same loop at `bench-350m`, full width and depth, in
+                 bf16 with weights from seed 0: 8 prompts of 384 tokens,
+                 groups of 8, 2 prompts a step (16 completions), 64 new
+                 tokens at temperature 1.0, lr 1e-6, engine max_batch 16,
+                 max_len 512, page 64, K 4.  One warm-up step, four timed
+                 steps (rollout seconds and completion tokens/s, scoring
+                 and update seconds, learner tokens/s, weight sync ms,
+                 reward, prefix-hit against prefilled tokens, peak
+                 memory), then one step under torch.profiler (busy share,
+                 kernel groups).  Counters zeroed before the timed steps
+                 and read after: the paged kernel replays x layers x K, the
+                 forward on bf16 only, dQ and dK/dV 24 per update on bf16
+                 only; every timed window a replay; versions equal after
+                 every step.  A second trainer from the same seed must
+                 sample the same version-0 tokens; the equality of the
+                 param hashes after as many steps is reported.
 
 The line before the last is {"kernels": [...]}, one entry per kernel
 (the forward, dQ and dK/dV: one per dtype route); the last line is
@@ -445,6 +481,12 @@ def phase_kernels(timer):
         # One bench-350m layer call: b 8 x s 2048, 8 q / 4 kv heads.
         flash_case(timer, "350m_train_layer", 8, 2048, 8, 4, 128, bf,
                    timed=True),
+        # The rlhf_350m loop: scoring and the learner's forward at b 16 x
+        # s 512 (the pow2 scoring width), the leaders' prefill at the
+        # width bucket 8 x bucket 512.
+        flash_case(timer, "350m_rlhf_score", 16, 512, 8, 4, 128, bf,
+                   timed=True),
+        flash_case(timer, "350m_rlhf_prefill", 8, 512, 8, 4, 128, bf),
         flash_case(timer, "8b_single_bucket512", 1, 512, 32, 8, 128, bf),
         flash_case(timer, "ragged_1000", 1, 1000, 32, 8, 128, bf),
         flash_case(timer, "bf16_hd64_ragged", 2, 333, 8, 2, 64, bf),
@@ -465,6 +507,19 @@ def phase_kernels(timer):
         paged_case(timer, "8b_decode_window",
                    paged_inputs(8, 8, 4, 128, 512, 16, 8, 65, bf, ts, pos),
                    timed=True),
+        # The rlhf_350m decode state: bench-350m heads (kvh 4, rep 2, hd
+        # 128), pages of 64, table width 8, K 4; two groups of 8 slots
+        # whose 384-token prompt is six shared pages (1-6 and 7-12), each
+        # slot's completion on a page of its own, slots spread over the
+        # 64 new tokens (pos 384-447) and over the window's four steps.
+        paged_case(timer, "350m_rlhf_decode", paged_inputs(
+            16, 4, 2, 128, 64, 8, 4, 29, bf,
+            [384 + 4 * b for b in range(16)],
+            [384 + 4 * b + b % 4 for b in range(16)],
+            table=torch.tensor([[1 + 6 * (b // 8) + i for i in range(6)]
+                                + [13 + b, 0] for b in range(16)],
+                               dtype=torch.int32)),
+            timed=True),
         # Page boundaries; an idle slot whose pos ran far past its table
         # row (all zeros: the trash page); a slot with nothing admitted.
         paged_case(timer, "f32_page8_boundaries", paged_inputs(
@@ -497,6 +552,9 @@ def phase_kernels(timer):
     flash_bwd = [
         # One bench-350m layer call: b 8 x s 2048, 8 q / 4 kv heads.
         flash_bwd_case(timer, "350m_train_layer", 8, 2048, 8, 4, 128, bf,
+                       timed=True),
+        # The rlhf_350m learner's layer call: b 16 x s 512.
+        flash_bwd_case(timer, "350m_rlhf_learner", 16, 512, 8, 4, 128, bf,
                        timed=True),
         flash_bwd_case(timer, "8b_heads", 1, 1024, 32, 8, 128, bf),
         flash_bwd_case(timer, "ragged_1000", 1, 1000, 8, 4, 128, bf),
@@ -1804,6 +1862,372 @@ def phase_train_350m_sharded(card):
             for n in want}
 
 
+# ------------------------------------------------------ phase 7: online RLHF
+def rlhf_counts() -> dict:
+    """The flash counts and the paged kernel's launches."""
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    return {**flash_counts(),
+            "paged_decode_attention": paged_decode_attention.launches}
+
+
+def recording_worker():
+    """LLMRolloutWorker that keeps each trajectory it returns (the
+    trainer's worker_cls extension point)."""
+    from ray_tpu_torch.rl.rollout_llm import LLMRolloutWorker
+
+    class Recording(LLMRolloutWorker):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.trajs = []
+
+        def rollout(self, *a, **kw):
+            traj = super().rollout(*a, **kw)
+            self.trajs.append(traj)
+            return traj
+
+    return Recording
+
+
+def engine_graphs(tr) -> dict:
+    return graph_accounting(tr.workers[0].engine.stats())
+
+
+def phase_rlhf_small():
+    """The in-process GRPO loop at `debug` in f32 on CUDA and on the CPU
+    from the same params: three steps each (see 7 in the module
+    docstring)."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.rl.rlhf import GRPOLearner, RLHFConfig, RLHFTrainer
+    from ray_tpu_torch.train.step import param_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(llama.llama_configs()["debug"],
+                              dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(SEED))
+    base = dict(model=cfg, seed=SEED, n_prompts=4, prompt_len=10,
+                group_size=4, prompts_per_step=2, max_new_tokens=5,
+                temperature=1.0, lr=1e-2, worker_cls=recording_worker(),
+                engine=dict(max_batch=8, max_len=128, page_size=16,
+                            steps_per_sync=3))
+    runs, n_steps = {}, 3
+    for device in ("cuda", "cpu"):
+        tr = RLHFTrainer(RLHFConfig(**base, params=tree_to(params, device),
+                                    device=device))
+        try:
+            rec = {"metrics": [], "graphs": [], "versions": []}
+            if device == "cuda":
+                torch.cuda.synchronize()
+                zero_serve_counts()
+            for i in range(n_steps):
+                m = tr.step()
+                if i == 0:
+                    # The first update's gradients: both learners start
+                    # from the same params and trajectories.
+                    rec["grads"] = [p.grad.detach().to("cpu", copy=True)
+                                    for p in param_leaves(tr.learner.params)]
+                rec["metrics"].append(m)
+                rec["graphs"].append(engine_graphs(tr))
+                rec["versions"].append(
+                    (tr.stats()["workers"][0]["weight_version"],
+                     tr.learner.version))
+            rec["trajs"] = tr.workers[0].trajs
+            rec["params"] = tr.learner.get_params_numpy()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                rec["launches"] = rlhf_counts()
+                rec["ckpt"] = checkpoint_roundtrip(tr, GRPOLearner,
+                                                   tempfile, shutil)
+        finally:
+            tr.shutdown()
+        runs[device] = rec
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    same_tokens = [bool(np.array_equal(a["tokens"], b["tokens"])
+                        and np.array_equal(a["mask"], b["mask"]))
+                   for a, b in zip(gpu["trajs"], cpu["trajs"])]
+    # The backward kernels are held where their output is: the first
+    # update's gradients, leaf by leaf, against the CPU's (max error over
+    # the leaf's max).  The params after three Adam steps at lr 1e-2 are
+    # reported but not bounded: Adam moves an element by lr * m / (sqrt(v)
+    # + eps), so where a gradient sums to near eps, f32 rounding on either
+    # device picks the sign of a step of up to lr.
+    grad_rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(gpu["grads"], cpu["grads"])]
+    flat = {k: torch.cat([t.detach().reshape(-1).cpu()
+                          for t in param_leaves(tree)])
+            for k, tree in (("cuda", gpu["params"]), ("cpu", cpu["params"]))}
+    diffs = {"advantages": max(float(np.abs(a["advantages"]
+                                            - b["advantages"]).max())
+                               for a, b in zip(gpu["metrics"],
+                                               cpu["metrics"])),
+             "first_update_grads_rel": max(grad_rel),
+             "params_after_3_updates": float((flat["cuda"]
+                                              - flat["cpu"]).abs().max())}
+    for k in ("loss", "policy_loss", "kl", "ratio_mean"):
+        diffs[k] = max(abs(a[k] - b[k]) for a, b in
+                       zip(gpu["metrics"], cpu["metrics"]))
+    launches = gpu["launches"]
+    g = gpu["graphs"]
+    row = {"phase": "rlhf_small_f32", "model": "debug", "dtype": "float32",
+           "steps": n_steps, "same_tokens_and_masks": same_tokens,
+           "max_abs_diff": diffs, "tol": 1e-4,
+           "loss_cuda": [m["loss"] for m in gpu["metrics"]],
+           "loss_cpu": [m["loss"] for m in cpu["metrics"]],
+           "reward_mean": [m["reward_mean"] for m in gpu["metrics"]],
+           "versions_engine_learner": gpu["versions"], "graphs": g,
+           "launches": launches, "checkpoint": gpu["ckpt"]}
+    emit(row)
+    if not all(same_tokens):
+        raise AssertionError("rlhf_small: trajectories differ between "
+                             "CUDA and the CPU")
+    for a, b in zip(gpu["metrics"], cpu["metrics"]):
+        np.testing.assert_allclose(a["advantages"], b["advantages"],
+                                   atol=1e-4, rtol=0)
+        for k in ("loss", "policy_loss", "kl", "ratio_mean"):
+            if abs(a[k] - b[k]) > 1e-4 * max(1.0, abs(b[k])):
+                raise AssertionError(f"rlhf_small: {k} {a[k]} != {b[k]}")
+    if not all(g <= 1e-4 for g in grad_rel):
+        raise AssertionError(f"rlhf_small: first-update gradients differ "
+                             f"from the CPU's: {grad_rel}")
+    if any(e != lv for e, lv in gpu["versions"] + cpu["versions"]):
+        raise AssertionError(f"rlhf_small: engine and learner versions "
+                             f"{gpu['versions']} {cpu['versions']}")
+    per_update = cfg.n_layers * n_steps
+    if (launches["paged_decode_attention"] == 0
+            or launches["flash_attention_fwd/fma"] < 3 * cfg.n_layers
+            * n_steps
+            or launches["flash_attention_fwd/wgmma"]
+            or launches["flash_attention_bwd_dq/fma"] != per_update
+            or launches["flash_attention_bwd_dkv/fma"] != per_update
+            or launches["flash_attention_bwd_dq/wgmma"]
+            or launches["flash_attention_bwd_dkv/wgmma"]):
+        raise AssertionError(f"rlhf_small: launches {launches}")
+    for prev, cur in zip(g, g[1:]):
+        new = cur["decode_windows"] - prev["decode_windows"]
+        if new == 0 or cur["graph_replays"] - prev["graph_replays"] != new:
+            raise AssertionError(f"rlhf_small: a window after a weight "
+                                 f"swap was not a replay: {g}")
+    if g[-1]["decode_windows"] != g[-1]["graph_replays"] \
+            + g[-1]["graph_captures"] or g[-1]["graph_captures"] != 1:
+        raise AssertionError(f"rlhf_small: windows {g[-1]}")
+    if not gpu["ckpt"]["bitwise"]:
+        raise AssertionError(f"rlhf_small: checkpoint {gpu['ckpt']}")
+    return launches
+
+
+def checkpoint_roundtrip(tr, learner_cls, tempfile, shutil) -> dict:
+    """save_async, then an update (in place) before the write is waited
+    for; a fresh learner loaded from the file must hold the saved state
+    to the bit."""
+    from ray_tpu_torch.train.step import param_leaves
+
+    learner = tr.learner
+
+    def leaves(st):
+        o = st["opt_state"]
+        return (param_leaves(st["params"]) + param_leaves(o["mu"])
+                + param_leaves(o["nu"]) + [o["count"]])
+
+    saved = [t.detach().clone() for t in leaves(learner.state_tree())]
+    version = learner.version
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        learner.save_async(os.path.join(d, "v"))
+        learner.update(tr.workers[0].trajs[-1])
+        learner.ckpt_wait()
+        fresh = learner_cls(tr.cfg)
+        fresh.load(os.path.join(d, "v"))
+        got = leaves(fresh.state_tree())
+        moved = any(not torch.equal(a, b) for a, b in
+                    zip(saved, leaves(learner.state_tree())))
+        bitwise = fresh.version == version and all(
+            a.dtype == b.dtype and torch.equal(a.to(b.device), b)
+            for a, b in zip(got, saved))
+        del fresh
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"bitwise": bitwise, "update_moved_state": moved,
+            "version": version}
+
+
+RLHF_350M = dict(n_prompts=8, prompt_len=384, group_size=8,
+                 prompts_per_step=2, max_new_tokens=64, temperature=1.0,
+                 lr=1e-6, engine=dict(max_batch=16, max_len=512,
+                                      page_size=64, steps_per_sync=4))
+
+
+def rlhf_350m_trainer(cfg):
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.rl.rlhf import RLHFConfig, RLHFTrainer
+
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    return RLHFTrainer(RLHFConfig(model=cfg, params=params, seed=SEED,
+                                  worker_cls=recording_worker(),
+                                  **RLHF_350M))
+
+
+def step_row(m: dict, traj: dict, step_s: float) -> dict:
+    r = m["rollout"]
+    B, T = traj["tokens"].shape
+    # The learner's positions that hold a real next token: each row's
+    # total_len - 1, not the pow2 width's padding.
+    positions = int(traj["total_len"].sum()) - B
+    return {"step_s": step_s, "rollout_s": r["gen_s"],
+            "decode_tokens_per_s": r["rollout_tokens"] / r["gen_s"],
+            "completion_tokens": r["rollout_tokens"],
+            "scoring_s": r["score_s"], "update_s": m["update_s"],
+            "learner_positions": positions,
+            "learner_tokens_per_s": positions / m["update_s"],
+            "weight_sync_ms": m["step_weight_sync_ms"],
+            "reward_mean": m["reward_mean"], "loss": m["loss"],
+            "kl": m["kl"], "ratio_mean": m["ratio_mean"],
+            "prefix_hit_tokens": r["prefix_hit_tokens"],
+            "prefill_tokens": r["prefill_tokens"],
+            "batch": [B, T]}
+
+
+def phase_rlhf_350m(card):
+    """The GRPO loop at `bench-350m`, full width and depth, bf16 (see 7b
+    in the module docstring)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.tools.profile_serve import kernel_groups
+
+    cfg = llama.llama_configs()["bench-350m"]
+    n_timed = 4
+    t0 = time.perf_counter()
+    tr = rlhf_350m_trainer(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    steps, versions = [], []
+    try:
+        t0 = time.perf_counter()
+        m = tr.step()                                  # warm-up
+        torch.cuda.synchronize()
+        warm = step_row(m, tr.workers[0].trajs[-1],
+                        time.perf_counter() - t0)
+        versions.append((tr.stats()["workers"][0]["weight_version"],
+                         tr.learner.version))
+        v0_tokens = tr.workers[0].trajs[0]["tokens"].copy()
+        torch.cuda.reset_peak_memory_stats()
+        g0 = engine_graphs(tr)
+        zero_serve_counts()
+        for _ in range(n_timed):
+            t0 = time.perf_counter()
+            m = tr.step()
+            torch.cuda.synchronize()
+            steps.append(step_row(m, tr.workers[0].trajs[-1],
+                                  time.perf_counter() - t0))
+            versions.append((tr.stats()["workers"][0]["weight_version"],
+                             tr.learner.version))
+        torch.cuda.synchronize()
+        launches = rlhf_counts()
+        g1 = engine_graphs(tr)
+        graph_st = tr.workers[0].engine.graph_stats()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            m = tr.step()
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        traced = step_row(m, tr.workers[0].trajs[-1], traced_s)
+        versions.append((tr.stats()["workers"][0]["weight_version"],
+                         tr.learner.version))
+        kernels, groups = kernel_groups(prof)
+        del prof
+        hash1 = tr.learner.param_hash()
+        n_steps = tr.learner.version
+    finally:
+        tr.shutdown()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    # A second trainer from the same seed: version-0 tokens and, after as
+    # many steps, the param hash.
+    tr = rlhf_350m_trainer(cfg)
+    try:
+        for _ in range(n_steps):
+            tr.step()
+        v0_again = tr.workers[0].trajs[0]["tokens"]
+        hash2 = tr.learner.param_hash()
+    finally:
+        tr.shutdown()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    windows = g1["decode_windows"] - g0["decode_windows"]
+    replays = g1["graph_replays"] - g0["graph_replays"]
+    device_ms = sum(ms for ms, _ in groups.values())
+    top = sorted(((n, ms, c) for n, (ms, c) in kernels.items()),
+                 key=lambda t: -t[1])[:12]
+
+    def mean(key):
+        return sum(s[key] for s in steps) / len(steps)
+
+    row = {"phase": "rlhf_350m", "card": card, "model": "bench-350m",
+           "dtype": "bfloat16", "params": cfg.num_params(),
+           "config": {k: v for k, v in RLHF_350M.items()},
+           "build_s": build_s, "warmup_step": warm, "steps": steps,
+           "mean": {k: mean(k) for k in (
+               "step_s", "rollout_s", "decode_tokens_per_s", "scoring_s",
+               "update_s", "learner_tokens_per_s", "weight_sync_ms",
+               "reward_mean")},
+           "prefix_hit_share": sum(s["prefix_hit_tokens"] for s in steps)
+           / sum(s["prefix_hit_tokens"] + s["prefill_tokens"]
+                 for s in steps),
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_step": {k: v / n_timed for k, v in
+                                 launches.items()},
+           "timed_windows": windows, "timed_replays": replays,
+           "graphs": g1, "graph_stats": graph_st,
+           "versions_engine_learner": versions,
+           "traced_step": traced, "traced_device_ms": device_ms,
+           "traced_device_busy_share": device_ms / (traced_s * 1e3),
+           # The profiler slows the host: the traced step's device time
+           # over the mean untraced step.
+           "traced_device_ms_over_mean_step": device_ms
+           / (mean("step_s") * 1e3),
+           "traced_groups": {k: {"ms": ms, "launches": n}
+                             for k, (ms, n) in sorted(groups.items())},
+           "traced_top": [{"name": n[:100], "ms": ms, "launches": c}
+                          for n, ms, c in top],
+           "v0_tokens_equal_second_run": bool(np.array_equal(v0_tokens,
+                                                             v0_again)),
+           "param_hash_equal_second_run": hash1 == hash2,
+           "param_hashes": [hash1, hash2], "steps_hashed": n_steps}
+    emit(row)
+    if not all(math.isfinite(s[k]) for s in steps + [warm, traced]
+               for k in ("loss", "kl", "ratio_mean", "reward_mean")):
+        raise AssertionError(f"rlhf_350m: non-finite metrics: {steps}")
+    if any(e != lv for e, lv in versions):
+        raise AssertionError(f"rlhf_350m: versions {versions}")
+    if windows == 0 or replays != windows:
+        raise AssertionError(f"rlhf_350m: {windows} windows, {replays} "
+                             "replays: a window after a swap was not a "
+                             "replay")
+    want_bwd = cfg.n_layers * n_timed
+    if (launches["paged_decode_attention"] == 0
+            or launches["paged_decode_attention"] != replays
+            * paged_per_replay(cfg, RLHF_350M["engine"]["steps_per_sync"])
+            or launches["flash_attention_fwd/wgmma"] == 0
+            or launches["flash_attention_fwd/fma"]
+            or any(launches[f"flash_attention_bwd_{k}/wgmma"] != want_bwd
+                   or launches[f"flash_attention_bwd_{k}/fma"]
+                   for k in ("dq", "dkv"))):
+        raise AssertionError(f"rlhf_350m: launches {launches}")
+    if not row["v0_tokens_equal_second_run"]:
+        raise AssertionError("rlhf_350m: a second trainer from the same "
+                             "seed sampled other version-0 tokens")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1851,6 +2275,10 @@ def main() -> int:
     train_small = phase_train_small()
     train = phase_train_350m(card)
     sharded = phase_train_350m_sharded(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rlhf_small = phase_rlhf_small()
+    rlhf = phase_rlhf_350m(card)
 
     def entry(name, kernel, src, replaces, launches, row, part=None,
               errs=()):
@@ -1931,6 +2359,30 @@ def main() -> int:
     for i, name in ((1, "flash_attention_fwd"), (3, "flash_attention_bwd_dq"),
                     (5, "flash_attention_bwd_dkv")):
         kernels[i]["launches_train_350m_sharded"] = sharded[f"{name}/wgmma"]
+    # The online RLHF loop: the f32 routes at `debug`, bf16 at bench-350m.
+    for i, name in enumerate(("paged_decode_attention",
+                              "flash_attention_fwd/wgmma",
+                              "flash_attention_fwd/fma",
+                              "flash_attention_bwd_dq/wgmma",
+                              "flash_attention_bwd_dq/fma",
+                              "flash_attention_bwd_dkv/wgmma",
+                              "flash_attention_bwd_dkv/fma")):
+        if i == 0 or name.endswith("/fma"):
+            kernels[i]["launches_rlhf_small_f32"] = rlhf_small[name]
+        if i == 0 or name.endswith("/wgmma"):
+            kernels[i]["launches_rlhf_350m"] = rlhf[name]
+    # Each bf16 kernel's times at the rlhf_350m shapes.
+    for i, row, part in ((0, paged["350m_rlhf_decode"], None),
+                         (1, fwd["350m_rlhf_score"], None),
+                         (3, bwd["350m_rlhf_learner"], "dq"),
+                         (5, bwd["350m_rlhf_learner"], "dkv")):
+        pre = "" if part is None else f"{part}_"
+        kernels[i]["rlhf_350m_shape"] = {
+            "case": row["case"], "max_abs_err": row["max_abs_err"],
+            "ms": row[f"{pre}ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row[f"{pre}bound_ms"],
+            "bound_by": row[f"{pre}bound_by"],
+            "library_ms": row["library_ms"]}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

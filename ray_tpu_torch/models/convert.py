@@ -94,3 +94,31 @@ def train_state_from_jax(tree: dict, cfg: LlamaConfig,
                                     "exp_avg_sq": nu}
     state.step = int(np.asarray(tree["step"]))
     return state
+
+
+def _adam_state(opt_state):
+    """The ScaleByAdamState (mu, nu, count) inside optax.adam's chain
+    state."""
+    for sub in opt_state if isinstance(opt_state, (list, tuple)) else ():
+        if all(hasattr(sub, k) for k in ("mu", "nu", "count")):
+            return sub
+    raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
+
+
+def grpo_state_from_jax(tree: dict, cfg: LlamaConfig, device=None) -> dict:
+    """A GRPOLearner state (`GRPOLearner.load_state`) that continues the
+    reference learner's run.
+
+    `tree` is the reference learner's state as its checkpoints hold it,
+    with numpy leaves: "params", "opt_state" (optax.adam's chain state, a
+    tuple around a ScaleByAdamState) and "version".  Returns {"params",
+    "opt_state": {"mu", "nu", "count"}, "version"} as tensors on `device`
+    (cuda by default) in the config's dtype."""
+    device = resolve_device(device, "grpo_state_from_jax")
+    adam = _adam_state(tree["opt_state"])
+    return {"params": params_from_jax(tree["params"], cfg, device),
+            "opt_state": {"mu": params_from_jax(adam.mu, cfg, device),
+                          "nu": params_from_jax(adam.nu, cfg, device),
+                          "count": torch.tensor(
+                              float(np.asarray(adam.count)))},
+            "version": int(np.asarray(tree["version"]))}

@@ -578,7 +578,10 @@ def decode_step_paged(params: dict, pages: dict, tails: dict,
             cfg.head_dim, page_table.shape[1] * pages["k"][0].shape[2],
             cfg.rope_theta, device=x.device)
     cos, sin = rope
-    positions = pos[:, None]
+    # An idle lane's pos keeps advancing window after window; clamp its
+    # table lookup to the last row, as JAX clamps the reference's gather
+    # (an index past the table raises on the CPU and asserts on CUDA).
+    positions = torch.clamp(pos, max=cos.shape[0] - 1)[:, None]
     for lid in range(cfg.n_layers):
         lp = _layer(params, lid)
         lb, idx = _lora_layer_slice(lora, lid)

@@ -1,1 +1,2 @@
-"""Training: the single-device step (`step.py`)."""
+"""Training: the single-device and sharded step (`step.py`) and
+checkpoints (`checkpoint.py`)."""
