@@ -164,6 +164,38 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  sample the same version-0 tokens; the equality of the
                  param hashes after as many steps is reported.
 
+  8. moe_small_f32 -- the MoE family (`moe-debug`, f32, TF32 off) on CUDA
+                 and on the CPU from the same params and tokens (batch 2 x
+                 seq 64): `route` on the same hidden states gives the same
+                 dispatch, and combine and aux within 1e-6; on tied
+                 probabilities the same dispatch, ties to the lower index
+                 (as lax.top_k; whether torch.topk's CUDA path does too is
+                 reported); logits and loss
+                 within 1e-4, and the first step's gradients within 1e-4 of
+                 each leaf's largest; the grad pass launches the forward,
+                 dQ and dK/dV once a layer each, on the f32 (FMA) routes
+                 only.
+  9. train_mixtral_4l -- `mixtral-8x7b` at its published widths (dim 4096,
+                 32 / 8 heads of 128, ffn 14336, 8 experts, top 2, capacity
+                 factor 1.25, vocab 32000) cut to 4 of its 32 layers for
+                 memory (bf16 weights, gradients and AdamW moments: 8
+                 bytes a parameter, 48.6 GB for 6.07 G parameters), bf16,
+                 weights from seed 0, batch 2 x seq 4096 of seeded random
+                 tokens (capacity 2560 an expert), `default_optimizer`,
+                 remat flash_resid: one warm-up step, three timed steps
+                 (step ms, tokens/s, MFU over active parameters, peak
+                 memory, loss; the counters are zeroed just before and read
+                 just after: 4 launches a step of each flash kernel, all
+                 bf16), a no-grad forward for the aux loss and the share of
+                 routed slots that capacity dropped, then one step under
+                 torch.profiler split by range of the MoE layer (its
+                 attention block; routing, dispatch, the expert GEMMs, the
+                 f32 combine; each with its recompute and backward), the
+                 flash kernels and the rest.
+
+Phase `kernels` also holds the flash forward and backward at the Mixtral
+layer's shape ([2, 4096, 32, 8, 128], bf16, timed).
+
 The line before the last is {"kernels": [...]}, one entry per kernel
 (the forward, dQ and dK/dV: one per dtype route); the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
@@ -487,6 +519,10 @@ def phase_kernels(timer):
         flash_case(timer, "350m_rlhf_score", 16, 512, 8, 4, 128, bf,
                    timed=True),
         flash_case(timer, "350m_rlhf_prefill", 8, 512, 8, 4, 128, bf),
+        # One Mixtral layer call in train_mixtral_4l: b 2 x s 4096, 32 q /
+        # 8 kv heads.
+        flash_case(timer, "mixtral_train_layer", 2, 4096, 32, 8, 128, bf,
+                   timed=True),
         flash_case(timer, "8b_single_bucket512", 1, 512, 32, 8, 128, bf),
         flash_case(timer, "ragged_1000", 1, 1000, 32, 8, 128, bf),
         flash_case(timer, "bf16_hd64_ragged", 2, 333, 8, 2, 64, bf),
@@ -556,6 +592,9 @@ def phase_kernels(timer):
         # The rlhf_350m learner's layer call: b 16 x s 512.
         flash_bwd_case(timer, "350m_rlhf_learner", 16, 512, 8, 4, 128, bf,
                        timed=True),
+        # The Mixtral layer call of train_mixtral_4l.
+        flash_bwd_case(timer, "mixtral_train_layer", 2, 4096, 32, 8, 128,
+                       bf, timed=True),
         flash_bwd_case(timer, "8b_heads", 1, 1024, 32, 8, 128, bf),
         flash_bwd_case(timer, "ragged_1000", 1, 1000, 8, 4, 128, bf),
         flash_bwd_case(timer, "bf16_hd64_ragged", 2, 333, 8, 2, 64, bf),
@@ -2228,6 +2267,280 @@ def phase_rlhf_350m(card):
     return launches
 
 
+# ------------------------------------------- phase 8: MoE, small f32
+# CUDA against the CPU in f32 (TF32 off): routing is exact comparisons and
+# counts over f32 probabilities, so the dispatch must be equal and the
+# gates within 1e-6; logits, loss and the first step's gradients (relative
+# to each leaf's largest, the rlhf_small_f32 rule) within 1e-4.
+MOE_ROUTE_TOL = 1e-6
+MOE_TOL = 1e-4
+
+
+def phase_moe_small():
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.train.step import (create_train_state,
+                                          default_optimizer, param_leaves)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(moe.moe_configs()["moe-debug"],
+                              dtype=torch.float32)
+    params = moe.init_params(cfg, torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 65)))
+    # route() on the same hidden states and router on both devices.
+    h = torch.from_numpy(rng.normal(size=(128, cfg.dim)).astype(np.float32))
+    w = params["layers"]["router"][0]
+    cpu_r = moe.route(h, w, cfg)
+    gpu_r = [t.cpu() for t in moe.route(h.cuda(), w.cuda(), cfg)]
+    # Tied probabilities (tests/test_torch_moe.py's case): identical
+    # router columns but for two rows; experts 1 and 2 tie for second
+    # place in the first 32 tokens, 0 and 1 for first in the others.
+    ht = torch.from_numpy(rng.normal(size=(64, cfg.dim)).astype(np.float32))
+    ht[:, :2] = 0.0
+    ht[:32, 0] = ht[32:, 1] = 5.0
+    wt = (torch.from_numpy(rng.normal(size=(cfg.dim, 1)).astype(np.float32))
+          * 0.1).repeat(1, cfg.n_experts)
+    wt[0] = torch.tensor([4.0, 3.0, 3.0, 0.0])
+    wt[1] = torch.tensor([3.0, 3.0, 0.0, 0.0])
+    tied_cpu = moe.route(ht, wt, cfg)[0]
+    tied_gpu = moe.route(ht.cuda(), wt.cuda(), cfg)[0].cpu()
+    probs = torch.softmax(ht.cuda() @ wt.cuda(), dim=-1)
+    topk_e = torch.topk(probs, cfg.experts_per_token, dim=-1).indices
+    row = {"phase": "moe_small_f32", "model": "moe-debug",
+           "tied_dispatch_equal": bool(torch.equal(tied_gpu, tied_cpu)),
+           "tied_lower_index": bool(tied_gpu[:, 2:].sum() == 0),
+           "cuda_topk_picks_lower_index": bool(
+               (topk_e.sort(dim=-1).values.cpu()
+                == torch.tensor([0, 1])).all()),
+           "dtype": "float32", "batch": 2, "seq": 64,
+           "route_tokens": 128, "capacity": moe._capacity(128, cfg),
+           "dispatch_equal": bool(torch.equal(gpu_r[0], cpu_r[0])),
+           "route_kept": float(cpu_r[0].sum()),
+           "combine_max_abs_diff": max_err(gpu_r[1], cpu_r[1]),
+           "aux_abs_diff": abs(float(gpu_r[2]) - float(cpu_r[2])),
+           "tol": {"route": MOE_ROUTE_TOL, "model": MOE_TOL}}
+    out = {}
+    opt = default_optimizer(lr=1e-3, warmup=2, total_steps=10)
+    zero_flash_counts()
+    for device in ("cuda", "cpu"):
+        state = create_train_state(SEED, cfg, opt, device=device,
+                                   params=params)
+        toks = tokens.to(device)
+        with torch.no_grad():
+            logits, aux = moe.forward(state.params, toks[:, :-1], cfg)
+        n0 = flash_counts()
+        loss = moe.loss_fn(state.params, {"tokens": toks}, cfg)
+        loss.backward()
+        out[device] = {"logits": logits.cpu(), "aux": aux.item(),
+                       "loss": loss.item(),
+                       "grads": [p.grad.cpu()
+                                 for p in param_leaves(state.params)],
+                       "launches": {n: c - n0[n] for n, c in
+                                    flash_counts().items()}}
+    gpu, cpu = out["cuda"], out["cpu"]
+    grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(gpu["grads"], cpu["grads"]))
+    row.update({"logits_max_abs_diff": max_err(gpu["logits"],
+                                               cpu["logits"]),
+                "loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"],
+                "aux_cuda": gpu["aux"], "aux_cpu": cpu["aux"],
+                "first_step_grads_rel": grad_rel,
+                "launches_grad_pass": gpu["launches"]})
+    emit(row)
+    if not (row["dispatch_equal"] and row["tied_dispatch_equal"]
+            and row["tied_lower_index"]):
+        raise AssertionError(f"moe_small: route's dispatch differs on CUDA "
+                             f"or breaks a tie upward: {row}")
+    if max(row["combine_max_abs_diff"], row["aux_abs_diff"]) \
+            > MOE_ROUTE_TOL:
+        raise AssertionError(f"moe_small: route differs: {row}")
+    np.testing.assert_allclose(gpu["logits"].numpy(), cpu["logits"].numpy(),
+                               atol=MOE_TOL, rtol=MOE_TOL)
+    np.testing.assert_allclose(gpu["loss"], cpu["loss"], rtol=MOE_TOL)
+    if grad_rel > MOE_TOL:
+        raise AssertionError(f"moe_small: gradients differ: {grad_rel}")
+    L = cfg.n_layers
+    want = {"flash_attention_fwd": L, "flash_attention_fwd/fma": L,
+            "flash_attention_fwd/wgmma": 0,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dq/fma": L,
+            "flash_attention_bwd_dq/wgmma": 0,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_dkv/fma": L,
+            "flash_attention_bwd_dkv/wgmma": 0}
+    if gpu["launches"] != want or any(cpu["launches"].values()):
+        raise AssertionError(f"moe_small: launches {gpu['launches']} != "
+                             f"{want}")
+    return flash_counts()
+
+
+# ------------------------------------ phase 9: Mixtral, 4 of 32 layers
+def range_split(prof, ranges, groups) -> dict:
+    """Device ms of a trace by where each kernel came from: a kernel
+    launched inside a record_function range (forward, or its remat
+    recompute) counts to that range; a backward kernel to the range of
+    the forward op whose autograd node launched it (sequence number and
+    thread, the profiler's own forward-backward link).  The flash
+    kernels, and the "gemm" and "other" kernels outside the ranges, come
+    from `groups` (kernel_groups of the same trace: each device kernel
+    once); on the card's torch a CPU event's `kernels` can repeat
+    kernels of other events, so only the ranges' are read from there,
+    and only names seen among the trace's device kernels."""
+    from ray_tpu_torch.tools.profile_serve import kernel_group
+
+    events = list(prof.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    device_names = {e.name for e in events if e.device_type == cuda
+                    and not getattr(e, "is_user_annotation", False)}
+    fwd = {}
+    for e in events:
+        if e.name in ranges:
+            stack = list(e.cpu_children)
+            while stack:
+                c = stack.pop()
+                if c.sequence_nr >= 0:
+                    fwd[(c.sequence_nr, c.thread)] = e.name
+                stack.extend(c.cpu_children)
+
+    def label(e):
+        while e is not None:
+            if e.name in ranges:
+                return e.name
+            if e.scope == 1:                       # a backward function
+                return fwd.get((e.sequence_nr, e.fwd_thread))
+            e = e.cpu_parent
+        return None
+
+    out, inside = {}, {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        lab = label(e)
+        for k in e.kernels:
+            g = kernel_group(k.name)
+            if lab is None or k.name not in device_names \
+                    or g.startswith("flash"):
+                continue
+            for d, key in ((out, lab), (inside, g)):
+                ms, n = d.get(key, (0.0, 0))
+                d[key] = (ms + k.duration / 1e3, n + 1)
+    for g, (ms, n) in groups.items():
+        ms_in, n_in = inside.get(g, (0.0, 0))
+        out[g] = (ms - ms_in, n - n_in)     # outside the ranges
+    return out
+
+
+def phase_train_mixtral_4l(card):
+    """`mixtral-8x7b` at its published widths, 4 of its 32 layers (bf16
+    weights, gradients and AdamW moments take 8 bytes a parameter: 4
+    layers are 6.07 G parameters, 48.6 GB; 32 would be 373 GB)."""
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.tools.profile_serve import kernel_groups
+    from ray_tpu_torch.train.step import (create_train_state,
+                                          default_optimizer, make_train_step)
+
+    cfg = dataclasses.replace(moe.moe_configs()["mixtral-8x7b"], n_layers=4)
+    batch_size, seq, n_timed = 2, 4096, 3
+    opt = default_optimizer(total_steps=1000)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = create_train_state(SEED, cfg, opt)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(batch_size, seq))).to("cuda")
+    batch = {"inputs": tokens, "targets": tokens}      # bench.py's batch
+    step = make_train_step(cfg, opt)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)                      # warm-up, lr 0
+    loss0 = m["loss"].item()
+    warmup_s = time.perf_counter() - t0
+    losses, norms, step_ms = [], [], []
+    torch.cuda.synchronize()
+    zero_flash_counts()
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    launches = flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # Routing of one no-grad forward: slots kept per layer, and the aux.
+    kept, plain = [], moe.route
+    C = moe._capacity(batch_size * seq, cfg)
+
+    def recording(h, w, cfg_):
+        out = plain(h, w, cfg_)
+        kept.append(float(out[0].sum(dtype=torch.float32)))
+        return out
+
+    moe.route = recording
+    try:
+        with torch.no_grad():
+            _, aux = moe.forward(state.params, tokens, cfg)
+    finally:
+        moe.route = plain
+    routed = batch_size * seq * cfg.experts_per_token
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    _, groups = kernel_groups(prof)
+    device_ms = sum(ms for ms, _ in groups.values())
+    split = range_split(prof, moe.TRACE_RANGES, groups)
+
+    mean_ms = sum(step_ms) / len(step_ms)
+    tokens_per_s = batch_size * seq / (mean_ms / 1e3)
+    flops_per_token = 6 * cfg.active_params() \
+        + 12 * cfg.n_layers * cfg.dim * seq
+    row = {"phase": "train_mixtral_4l", "card": card,
+           "model": "mixtral-8x7b", "n_layers": cfg.n_layers,
+           "dtype": "bfloat16", "params": cfg.num_params(),
+           "active_params": cfg.active_params(), "batch": batch_size,
+           "seq": seq, "capacity": C, "remat_mode": cfg.remat_mode,
+           "init_params_s": t_init, "warmup_step_s": warmup_s,
+           "first_loss": loss0, "ln_vocab": math.log(cfg.vocab_size),
+           "loss": losses, "grad_norm": norms, "aux": aux.item(),
+           "kept_slots_per_layer": kept, "routed_slots": routed,
+           "dropped_share_per_layer": [1 - k / routed for k in kept],
+           "step_ms": step_ms, "mean_step_ms": mean_ms,
+           "tokens_per_s": tokens_per_s,
+           "flops_per_token": flops_per_token,
+           "mfu_active": tokens_per_s * flops_per_token / BF16_FLOPS,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_step": {n: c / n_timed
+                                 for n, c in launches.items()},
+           "traced_step_ms": traced_ms, "traced_device_ms": device_ms,
+           "traced_device_busy_share": device_ms / traced_ms,
+           "traced_groups": {g: {"ms": ms, "launches": n}
+                             for g, (ms, n) in sorted(groups.items())},
+           "traced_split": {g: {"ms": ms, "launches": n}
+                            for g, (ms, n) in sorted(split.items())},
+           "traced_split_ranges_ms": sum(ms for g, (ms, _) in split.items()
+                                         if g in moe.TRACE_RANGES)}
+    emit(row)
+    if not all(math.isfinite(x) for x in losses + norms + [loss0,
+                                                           aux.item()]):
+        raise AssertionError(f"non-finite loss, grad norm or aux: {row}")
+    if abs(loss0 - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {loss0} is far from ln(vocab)")
+    if len(kept) != cfg.n_layers or not all(0 < k <= routed for k in kept):
+        raise AssertionError(f"routing counts {kept} of {routed}")
+    if any(c != (0 if n.endswith("/fma") else n_timed * cfg.n_layers)
+           for n, c in launches.items()):
+        raise AssertionError(f"flash launches {launches} != "
+                             f"{cfg.n_layers} per step, all bf16 routes")
+    del state, m, prof
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2279,6 +2592,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rlhf_small = phase_rlhf_small()
     rlhf = phase_rlhf_350m(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_small = phase_moe_small()
+    mixtral = phase_train_mixtral_4l(card)
 
     def entry(name, kernel, src, replaces, launches, row, part=None,
               errs=()):
@@ -2371,13 +2688,29 @@ def main() -> int:
             kernels[i]["launches_rlhf_small_f32"] = rlhf_small[name]
         if i == 0 or name.endswith("/wgmma"):
             kernels[i]["launches_rlhf_350m"] = rlhf[name]
-    # Each bf16 kernel's times at the rlhf_350m shapes.
+    # The MoE slice: the f32 routes at moe-debug, bf16 at Mixtral's widths.
+    for i, name in ((1, "flash_attention_fwd/wgmma"),
+                    (2, "flash_attention_fwd/fma"),
+                    (3, "flash_attention_bwd_dq/wgmma"),
+                    (4, "flash_attention_bwd_dq/fma"),
+                    (5, "flash_attention_bwd_dkv/wgmma"),
+                    (6, "flash_attention_bwd_dkv/fma")):
+        if name.endswith("/fma"):
+            kernels[i]["launches_moe_small_f32"] = moe_small[name]
+        else:
+            kernels[i]["launches_train_mixtral_4l"] = mixtral[name]
+    # Each bf16 kernel's times at the rlhf_350m and Mixtral layer shapes.
     for i, row, part in ((0, paged["350m_rlhf_decode"], None),
                          (1, fwd["350m_rlhf_score"], None),
                          (3, bwd["350m_rlhf_learner"], "dq"),
-                         (5, bwd["350m_rlhf_learner"], "dkv")):
+                         (5, bwd["350m_rlhf_learner"], "dkv"),
+                         (1, fwd["mixtral_train_layer"], None),
+                         (3, bwd["mixtral_train_layer"], "dq"),
+                         (5, bwd["mixtral_train_layer"], "dkv")):
         pre = "" if part is None else f"{part}_"
-        kernels[i]["rlhf_350m_shape"] = {
+        key = ("mixtral_train_layer" if row["case"] == "mixtral_train_layer"
+               else "rlhf_350m_shape")
+        kernels[i][key] = {
             "case": row["case"], "max_abs_err": row["max_abs_err"],
             "ms": row[f"{pre}ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row[f"{pre}bound_ms"],

@@ -1,1 +1,2 @@
-"""Model definitions: the Llama-3 decoder's serving and training surface."""
+"""Model definitions: the Llama-3 decoder (serving and training) and the
+Mixtral-style MoE family on its trunk."""

@@ -11,10 +11,10 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.llama import (LlamaConfig, lora_target_dims,
-                                        param_shapes)
+from ray_tpu_torch.models.llama import LlamaConfig, lora_target_dims
 from ray_tpu_torch.train.step import (ClippedAdamW, TrainState,
-                                      create_train_state, param_leaves)
+                                      create_train_state, model_module,
+                                      param_leaves)
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -31,7 +31,8 @@ def as_tensor(x) -> torch.Tensor:
 
 
 def params_from_jax(tree: dict, cfg: LlamaConfig, device="cuda") -> dict:
-    """The port's parameter tree from the reference's (numpy leaves)."""
+    """The port's parameter tree from the reference's (numpy leaves), for
+    the config's model family (llama or moe)."""
     def convert(src, shapes, path):
         if isinstance(shapes, dict):
             if not isinstance(src, dict) or set(src) != set(shapes):
@@ -46,7 +47,7 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device="cuda") -> dict:
                              f"{tuple(shapes)}")
         return t.to(device=device, dtype=cfg.dtype)
 
-    return convert(tree, param_shapes(cfg), "")
+    return convert(tree, model_module(cfg).param_shapes(cfg), "")
 
 
 def lora_adapter_from_jax(adapter: dict, cfg: LlamaConfig,

@@ -40,7 +40,10 @@ from ray_tpu_torch.ops.norms import rmsnorm
 from ray_tpu_torch.ops.paged_attention import (gather_pages,
                                                paged_decode_attention)
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
-from ray_tpu_torch.parallel.sharding import (logical_axis_size, mesh_of,
+from ray_tpu_torch.parallel.pipeline import pipeline_apply
+from ray_tpu_torch.parallel.ring import ring_attention_gspmd
+from ray_tpu_torch.parallel.sharding import (logical_axis_size,
+                                             mesh_axis_size, mesh_of,
                                              replicate_like,
                                              with_sharding_constraint)
 
@@ -65,6 +68,9 @@ class LlamaConfig:
     # (o, lse); "nothing": full recompute; "dots": save the projection
     # matmuls; "flash_dots": both (see remat_policy).
     remat_mode: str = "flash_resid"
+    # Ring attention over the mesh's "seq" axis (parallel/ring.py); with
+    # no seq axis > 1 the training trunk's attention is the plain one.
+    use_ring_attention: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -147,19 +153,27 @@ def param_logical_axes(cfg: LlamaConfig) -> dict:
     }
 
 
+def normal_init(shape, fan_in: int, cfg: LlamaConfig,
+                generator: torch.Generator) -> torch.Tensor:
+    """normal / sqrt(fan_in) in cfg.dtype on the generator's device, drawn
+    one trailing matrix at a time, so the f32 staging stays one matrix big
+    at any model size."""
+    device = generator.device
+    out = torch.empty(shape, dtype=cfg.dtype, device=device)
+    for sl in (out.view(-1, *shape[-2:]) if len(shape) >= 3 else (out,)):
+        sl.copy_(torch.randn(sl.shape, generator=generator,
+                             device=device) * fan_in ** -0.5)
+    return out
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator) -> dict:
     """Random weights on the generator's device: normal / sqrt(fan_in),
-    norms at one.  Filled one layer slice at a time, so the f32 staging
-    stays one slice big at any model size."""
+    norms at one."""
     device = generator.device
     shapes = param_shapes(cfg)
 
     def normal(shape, fan_in):
-        out = torch.empty(shape, dtype=cfg.dtype, device=device)
-        for sl in (out if len(shape) == 3 else (out,)):
-            sl.copy_(torch.randn(sl.shape, generator=generator,
-                                 device=device) * fan_in ** -0.5)
-        return out
+        return normal_init(shape, fan_in, cfg, generator)
 
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=device)
@@ -645,10 +659,14 @@ def _attention_block(x, lp, cfg: LlamaConfig, cos, sin):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     # On a mesh, attention runs on each rank's shards: lay q, k and v out
-    # alike, batch and heads split, so every shard is a whole problem.
+    # alike, batch and heads split; a sequence split over "seq" runs the
+    # ring (cfg.use_ring_attention) or is gathered for plain attention.
     q, k, v = (with_sharding_constraint(t, ("batch", "seq", "heads", None))
                for t in (q, k, v))
-    o = attention(q, k, v, causal=True)
+    if cfg.use_ring_attention:
+        o = ring_attention_gspmd(q, k, v, seq_axis="seq")
+    else:
+        o = attention(q, k, v, causal=True)
     return x + (o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp["wo"])
 
 
@@ -666,34 +684,23 @@ def head_loss(params: dict, x: torch.Tensor, targets: torch.Tensor, mask,
     return cross_entropy(logits, targets, mask)
 
 
-def run_trunk(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
-              layer_fn) -> tuple[torch.Tensor, torch.Tensor]:
-    """Shared decoder trunk: embed -> layers -> final norm -> lm_head.
-
-    A Python loop over the stacked [L, ...] axis takes the place of the
-    reference's lax.scan; each layer runs under torch.utils.checkpoint with
-    remat_policy(cfg) when cfg.remat.  The layer leaves are unbound once,
-    so the backward stacks each leaf's gradient in one pass.
-    `layer_fn(x, lp, cos, sin, aux) -> (x, aux)` is the layer body.
-    On DTensor parameters the activations are constrained to the
-    reference's layouts (batch over data x fsdp, logits' vocab over
-    tensor) and the constant tables are replicated on the params' mesh.
-    Returns (logits f32, aux)."""
-    _, s = tokens.shape
-    x = embed_lookup(params["embed"], tokens, cfg.dtype)
-    x = with_sharding_constraint(x, ("batch", "seq", None))
-    cos, sin = (replicate_like(t, x) for t in rope_frequencies(
-        cfg.head_dim, s, cfg.rope_theta, device=x.device))
-    aux = replicate_like(torch.zeros((), dtype=torch.float32,
-                                     device=x.device), x)
-    stacked = [params["layers"][k].unbind(0) for k in LAYER_KEYS]
+def run_layers(x, layers: dict, cfg: LlamaConfig, layer_fn, cos, sin,
+               aux):
+    """`layer_fn(x, lp, cos, sin, aux) -> (x, aux)` over the stacked
+    [n, ...] leaves of `layers` (whatever keys the family has), each layer
+    under torch.utils.checkpoint with remat_policy(cfg) when cfg.remat.
+    The leaves are unbound once, so the backward stacks each leaf's
+    gradient in one pass.  On DTensors each layer's output is laid out
+    as ("batch", "seq", None), as the reference's scan body does."""
+    keys = tuple(layers)
+    stacked = [layers[k].unbind(0) for k in keys]
 
     def body(x, aux, *leaves):
-        x, aux = layer_fn(x, dict(zip(LAYER_KEYS, leaves)), cos, sin, aux)
+        x, aux = layer_fn(x, dict(zip(keys, leaves)), cos, sin, aux)
         return with_sharding_constraint(x, ("batch", "seq", None)), aux
 
     policy = remat_policy(cfg) if cfg.remat else None
-    for lid in range(cfg.n_layers):
+    for lid in range(len(stacked[0])):
         leaves = [t[lid] for t in stacked]
         if policy is None:
             x, aux = body(x, aux, *leaves)
@@ -702,6 +709,28 @@ def run_trunk(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
                 body, x, aux, *leaves, use_reentrant=False,
                 context_fn=functools.partial(
                     create_selective_checkpoint_contexts, policy))
+    return x, aux
+
+
+def run_trunk(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+              layer_fn) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shared decoder trunk: embed -> layers -> final norm -> lm_head.
+
+    A Python loop over the stacked [L, ...] axis (`run_layers`) takes the
+    place of the reference's lax.scan.  `layer_fn(x, lp, cos, sin, aux)
+    -> (x, aux)` is the layer body; `lp` holds the family's layer keys.
+    On DTensor parameters the activations are constrained to the
+    reference's layouts (batch over data x fsdp, sequence over seq,
+    logits' vocab over tensor) and the constant tables are replicated on
+    the params' mesh.  Returns (logits f32, aux)."""
+    _, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)
+    x = with_sharding_constraint(x, ("batch", "seq", None))
+    cos, sin = (replicate_like(t, x) for t in rope_frequencies(
+        cfg.head_dim, s, cfg.rope_theta, device=x.device))
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
+    x, aux = run_layers(x, params["layers"], cfg, layer_fn, cos, sin, aux)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
     return with_sharding_constraint(logits, ("batch", "seq", "vocab")), aux
@@ -739,3 +768,57 @@ def token_logprobs(params: dict, tokens: torch.Tensor, cfg: LlamaConfig
     logits = forward(params, tokens[:, :-1], cfg)
     logp = torch.log_softmax(logits, dim=-1)
     return torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+
+
+def pipelined_loss_fn(params: dict, batch: dict, cfg: LlamaConfig, mesh,
+                      n_micro: int | None = None) -> torch.Tensor:
+    """loss_fn with the decoder trunk pipelined over the mesh's "stage"
+    axis (GPipe microbatching, parallel/pipeline.pipeline_apply).
+
+    The stacked [L, ...] layer params are DTensors split over "stage" on
+    their layer dim (train/step.py's stage rules map "layers" to
+    "stage"); their view as [n_stages, L/S, ...] leaves each stage its
+    contiguous block where it lies.  Embed and lm_head / loss run outside
+    the pipeline, replicated over the stage axis and batch-parallel as
+    usual; inside it the microbatch dim stays data-parallel and the
+    per-stage params fsdp / tensor-sharded, as DTensor layouts."""
+    n_stages = mesh_axis_size(mesh, "stage")
+    L = cfg.n_layers
+    if L % n_stages:
+        raise ValueError(f"n_layers {L} not divisible by stage={n_stages}")
+    inputs, targets = split_batch(batch)
+    b, s = inputs.shape
+    n_micro = n_micro or max(2, n_stages)
+    if b % n_micro:
+        raise ValueError(f"batch {b} not divisible by n_micro={n_micro}")
+    batch_shards = logical_axis_size("batch", mesh)
+    if (b // n_micro) % batch_shards:
+        raise ValueError(
+            f"microbatch size {b // n_micro} not divisible by the batch "
+            f"sharding (data x fsdp = {batch_shards}); choose n_micro so "
+            "that batch / n_micro % (data * fsdp) == 0")
+    x = embed_lookup(params["embed"], inputs, cfg.dtype)
+    x = with_sharding_constraint(x, ("batch", "seq", None), mesh)
+    d = x.shape[-1]
+    # Row r -> (microbatch r % n_micro, slot r // n_micro): the reference's
+    # interleaved assignment.  Splitting the batch-sharded dim slot-major
+    # keeps each rank's rows where they are; the transpose only relabels
+    # dims, and its inverse below restores row order for the loss.
+    mb = x.reshape(b // n_micro, n_micro, s, d).transpose(0, 1)
+    mb = with_sharding_constraint(mb, (None, "batch", "seq", None), mesh)
+    stage_layers = {k: p.reshape(n_stages, L // n_stages, *p.shape[1:])
+                    for k, p in params["layers"].items()}
+
+    def stage_fn(lp_stage, act):
+        cos, sin = (replicate_like(t, act) for t in rope_frequencies(
+            cfg.head_dim, s, cfg.rope_theta, device=act.device))
+
+        def one(x, lp, cos, sin, aux):
+            return dense_layer(x, lp, cfg, cos, sin), aux
+
+        return run_layers(act, lp_stage, cfg, one, cos, sin, None)[0]
+
+    out = pipeline_apply(stage_fn, stage_layers, mb, mesh, axis="stage")
+    x = out.transpose(0, 1).reshape(b, s, d)
+    x = with_sharding_constraint(x, ("batch", "seq", None), mesh)
+    return head_loss(params, x, targets, batch.get("mask"), cfg)

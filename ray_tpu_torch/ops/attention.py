@@ -8,10 +8,13 @@ tiling gates do not apply.  Any other CUDA call raises.  CPU tensors take
 the plain version, `xla_attention`, as the reference does off-TPU; both
 paths carry gradients.
 
-DTensor inputs (the sharded train step) split batch and heads only, so
-every shard is a whole attention problem: the local shards go through the
-same dispatch (the flash kernels on CUDA) and the result is wrapped back
-on the mesh with q's placements, so no rank gathers q, k or v.
+DTensor inputs (the sharded train step) that split batch and heads only
+are a whole attention problem on every shard: the local shards go through
+the same dispatch (the flash kernels on CUDA) and the result is wrapped
+back on the mesh with q's placements, so no rank gathers q, k or v.  A
+sequence split over the "seq" axis is gathered first (what GSPMD does to
+the reference's plain attention); ring attention (parallel/ring.py)
+attends over the split instead.
 """
 from __future__ import annotations
 
@@ -78,16 +81,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _local_attention(q, k, v, causal, q_offset):
     """attention() on each rank's shards.  q, k and v must carry the same
-    placements, each Replicate or a Shard of the batch (0) or heads (2)
-    dim; a split sequence would need ring attention (not ported)."""
+    placements, each Replicate or a Shard of the batch (0), sequence (1)
+    or heads (2) dim; a split sequence is gathered for the call and split
+    again after it."""
     place = tuple(q.placements)
     if tuple(k.placements) != place or tuple(v.placements) != place:
         raise ValueError(f"attention: q, k and v placements differ: {place}, "
                          f"{tuple(k.placements)}, {tuple(v.placements)}")
-    if not all(p == Replicate() or p in (Shard(0), Shard(2)) for p in place):
+    if not all(p == Replicate() or p in (Shard(0), Shard(1), Shard(2))
+               for p in place):
         raise NotImplementedError(
-            f"attention on placements {place}: only the batch and heads "
-            "dims may be sharded (ring attention is not ported)")
+            f"attention on placements {place}: only the batch, sequence "
+            "and heads dims may be sharded")
+    if Shard(1) in place:
+        mesh = q.device_mesh
+        whole = tuple(Replicate() if p == Shard(1) else p for p in place)
+        o = _local_attention(*(t.redistribute(mesh, whole)
+                               for t in (q, k, v)), causal, q_offset)
+        return o.redistribute(mesh, place)
     o = attention(q.to_local(), k.to_local(), v.to_local(), causal,
                   q_offset)
     return DTensor.from_local(o.contiguous(), q.device_mesh, place,

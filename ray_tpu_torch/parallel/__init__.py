@@ -1,6 +1,7 @@
 """Parallelism layer (port of ray_tpu/parallel): the device mesh over the
-default process group's ranks and the logical-axis sharding rules, as
-DTensor placements.  Pipeline and ring attention are not ported."""
+default process group's ranks, the logical-axis sharding rules as DTensor
+placements, ring attention over the "seq" axis (ring.py) and the GPipe
+pipeline over the "stage" axis (pipeline.py)."""
 from ray_tpu_torch.parallel.mesh import (MeshConfig, create_mesh, local_mesh,
                                          mesh_shape_for)
 from ray_tpu_torch.parallel.sharding import (LOGICAL_RULES, logical_sharding,

@@ -1,5 +1,5 @@
-"""Device mesh construction for data / fsdp / tensor parallelism (port of
-ray_tpu/parallel/mesh.py).
+"""Device mesh construction for the data / fsdp / seq / expert / tensor /
+stage axes (port of ray_tpu/parallel/mesh.py).
 
 The reference's mesh is a jax Mesh over the devices of one program.  Here
 it is a torch DeviceMesh over the ranks of the default process group,

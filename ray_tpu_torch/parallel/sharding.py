@@ -150,6 +150,13 @@ def logical_axis_size(logical: str, mesh: DeviceMesh | None = None,
     return size
 
 
+def mesh_axis_size(mesh: DeviceMesh | None, axis: str) -> int:
+    """Size of a named mesh axis; 1 where the mesh lacks it (create_mesh
+    leaves size-1 axes out) or there is no mesh."""
+    names = list(mesh.mesh_dim_names or ()) if mesh is not None else []
+    return mesh.size(names.index(axis)) if axis in names else 1
+
+
 def mesh_of(x) -> DeviceMesh | None:
     """The mesh a DTensor lives on; None for a plain tensor."""
     return x.device_mesh if isinstance(x, DTensor) else None

@@ -27,9 +27,14 @@ step on them: DTensor's op propagation inserts the collectives that GSPMD
 inserts in the reference, attention runs on each rank's shards, each
 gradient is laid out like its parameter before the update, and the clip
 reads the norm of the whole gradient.  The data, fsdp and tensor axes
-train in any combination; stage, seq and expert > 1 raise
-NotImplementedError (pipeline, ring attention and MoE are ROADMAP.md
-queue 1 item 6).
+train in any combination, and with them:
+
+  - expert: an MoE config's expert weights split on their E dim;
+  - seq: the sequence split over "seq" (ring attention with
+    cfg.use_ring_attention, else attention on the gathered sequence);
+  - stage: the pipelined trunk (`llama.pipelined_loss_fn`), the stacked
+    layer dim split over "stage".  As in the reference, a stage mesh does
+    not take seq or expert > 1, nor a family without a pipelined trunk.
 """
 from __future__ import annotations
 
@@ -43,15 +48,19 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models import llama
-from ray_tpu_torch.parallel.sharding import (NamedSharding, logical_sharding,
+from ray_tpu_torch.models import llama, moe
+from ray_tpu_torch.parallel.sharding import (LOGICAL_RULES, NamedSharding,
+                                             logical_sharding, mesh_axis_size,
                                              param_shardings, tree_map)
 
 ADAM_EPS = 1e-8          # optax.adamw's default, outside the square root
 
 
 def model_module(cfg: llama.LlamaConfig):
-    """Model family for a config; the port has the llama family only."""
+    """Model family for a config: moe for MoEConfig (a LlamaConfig
+    subclass, so it is checked first), llama for LlamaConfig."""
+    if isinstance(cfg, moe.MoEConfig):
+        return moe
     if not isinstance(cfg, llama.LlamaConfig):
         raise TypeError(f"no ported model family for {type(cfg).__name__}")
     return llama
@@ -195,33 +204,23 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: ClippedAdamW,
 
 
 # ------------------------------------------------------- sharded wrappers
-UNPORTED_AXES = ("stage", "seq", "expert")
-
-
-def _axis_size(mesh: DeviceMesh, axis: str) -> int:
-    names = list(mesh.mesh_dim_names or ())
-    return mesh.size(names.index(axis)) if axis in names else 1
-
-
-def _check_mesh(mesh: DeviceMesh) -> None:
-    big = {a: _axis_size(mesh, a) for a in UNPORTED_AXES
-           if _axis_size(mesh, a) > 1}
-    if big:
-        raise NotImplementedError(
-            f"mesh axes {big}: pipeline (stage), ring attention (seq) and "
-            "MoE (expert) layouts are not ported (ROADMAP.md queue 1 item "
-            "6); the data, fsdp and tensor axes train")
+def _rules_for(mesh: DeviceMesh) -> dict | None:
+    """Sharding rules for a mesh: on a stage-bearing (pipeline) mesh the
+    stacked "layers" param axis splits over "stage", so each stage holds
+    its contiguous layer block.  None = the default LOGICAL_RULES."""
+    if mesh_axis_size(mesh, "stage") > 1:
+        return {**LOGICAL_RULES, "layers": "stage"}
+    return None
 
 
 def state_shardings(cfg: llama.LlamaConfig, mesh: DeviceMesh,
                     optimizer: ClippedAdamW) -> TrainState:
     """NamedShardings (mesh, placements) for a TrainState: params follow
-    the logical-axes table, each AdamW moment tree ("mu", "nu") mirrors
-    the params, the update count and the step replicate.  Raises on a
-    mesh whose stage, seq or expert axis is > 1, as sharded_train_step
-    does."""
-    _check_mesh(mesh)
-    p_sh = param_shardings(model_module(cfg).param_logical_axes(cfg), mesh)
+    the family's logical-axes table (with the stage rules on a stage
+    mesh), each AdamW moment tree ("mu", "nu") mirrors the params, the
+    update count and the step replicate."""
+    p_sh = param_shardings(model_module(cfg).param_logical_axes(cfg), mesh,
+                           rules=_rules_for(mesh))
     replicated = NamedSharding(mesh, (Replicate(),) * mesh.ndim)
     return TrainState(params=p_sh, opt_state={"mu": p_sh, "nu": p_sh,
                                               "count": replicated},
@@ -271,7 +270,7 @@ def reshard_state(state, cfg: llama.LlamaConfig, optimizer: ClippedAdamW,
     the same state on any mesh gives bitwise the same full tensors."""
     tree = _state_tree(state) if isinstance(state, TrainState) else state
     sh = state_shardings(cfg, mesh, optimizer)
-    shapes = llama.param_shapes(cfg)
+    shapes = model_module(cfg).param_shapes(cfg)
 
     def put(x, s, shape):
         t = _full(x)
@@ -307,15 +306,37 @@ def sharded_init(seed: int, cfg: llama.LlamaConfig, optimizer: ClippedAdamW,
 
 
 def sharded_train_step(cfg: llama.LlamaConfig, optimizer: ClippedAdamW,
-                       mesh: DeviceMesh,
-                       loss_fn: Callable | None = None) -> Callable:
+                       mesh: DeviceMesh, loss_fn: Callable | None = None,
+                       n_micro: int | None = None) -> Callable:
     """step(state, batch) -> (state, metrics) on a state laid out for
     `mesh` (sharded_init / reshard_state): the batch's arrays (host
     arrays or tensors holding the global batch, the same on every rank)
-    are split over data x fsdp, then make_train_step's in-place step runs
-    on the DTensors.  Metrics as make_train_step's; "loss" and
-    "grad_norm" read the same on every rank."""
-    _check_mesh(mesh)
+    are split over data x fsdp (and the sequence over seq), then
+    make_train_step's in-place step runs on the DTensors.  On a
+    stage-bearing mesh the trunk runs the GPipe pipeline
+    (`pipelined_loss_fn` of the family, `n_micro` microbatches).
+    Metrics as make_train_step's; "loss" and "grad_norm" read the same on
+    every rank."""
+    if loss_fn is None and mesh_axis_size(mesh, "stage") > 1:
+        # data / fsdp / tensor compose with the pipeline; seq (ring
+        # attention would nest its own ring inside a stage) and expert (no
+        # pipelined MoE trunk) do not, as in the reference.
+        unsupported = [a for a in ("seq", "expert")
+                       if mesh_axis_size(mesh, a) > 1]
+        if unsupported:
+            raise NotImplementedError(
+                f"pipeline meshes compose with data/fsdp/tensor; axes "
+                f"{unsupported} > 1 are not supported inside the "
+                "pipelined trunk yet")
+
+        def loss_fn(params, batch, cfg_):
+            pl = getattr(model_module(cfg_), "pipelined_loss_fn", None)
+            if pl is None:
+                raise NotImplementedError(
+                    f"{model_module(cfg_).__name__} has no pipelined "
+                    "trunk; pipeline meshes (stage>1) currently support "
+                    "the llama family")
+            return pl(params, batch, cfg_, mesh, n_micro)
     b_sh = batch_shardings(mesh)
     step = make_train_step(cfg, optimizer, loss_fn, device=mesh.device_type)
 

@@ -45,6 +45,10 @@ def test_walk_covers_the_package_and_chip_smoke():
                 "ray_tpu_torch/serve/prefix_store.py",
                 "ray_tpu_torch/serve/lora.py",
                 "ray_tpu_torch/models/llama.py",
+                "ray_tpu_torch/models/moe.py",
+                "ray_tpu_torch/parallel/comm.py",
+                "ray_tpu_torch/parallel/ring.py",
+                "ray_tpu_torch/parallel/pipeline.py",
                 "ray_tpu_torch/ops/paged_attention.py",
                 "ray_tpu_torch/ops/flash_attention.py",
                 "ray_tpu_torch/ops/losses.py",

@@ -21,7 +21,9 @@ from the JAX `sharded_init` state (its host tree, or the TrainState
   layout, and a state taken under fsdp 4 and resharded onto data 2 x
   tensor 2 has bitwise the same full tensors and continues as the run
   that stayed on fsdp 4;
-- stage, seq and expert > 1 raise.
+- what still raises: a stage mesh with seq or expert > 1, and the MoE
+  family on a stage mesh (tests/test_torch_parallel_trunks.py holds the
+  three axes themselves).
 
 No test boots the ray_tpu runtime."""
 import dataclasses
@@ -263,14 +265,25 @@ def _rank_main(rank, store, tree_path, out_dir):
                             ts.param_leaves(init.params)))
         res["plain_passes"] = with_sharding_constraint(
             torch.ones(2), ("batch",)) is not None
+        # What still raises, as in the reference: a stage mesh with seq or
+        # expert > 1, and MoE (no pipelined trunk) on a stage mesh.  Every
+        # other entry point takes those meshes.
+        from ray_tpu_torch.models import moe
+
+        moe_cfg = dataclasses.replace(moe.moe_configs()["moe-debug"],
+                                      dtype=torch.float32)
         res["unported"] = {}
-        for ax in ("stage", "seq", "expert"):
-            m = create_mesh(MeshConfig(data=2, **{ax: 2}), "cpu")
-            res["unported"][ax] = [_raised(fn) for fn in (
-                lambda: ts.sharded_train_step(cfg, opt, m),
-                lambda: ts.state_shardings(cfg, m, opt),
-                lambda: ts.reshard_state(tree, cfg, opt, m),
-                lambda: ts.sharded_init(0, cfg, opt, m))]
+        for case, kw, c in (("seq", dict(data=1, stage=2, seq=2), cfg),
+                            ("expert", dict(data=1, stage=2, expert=2), cfg),
+                            ("stage", dict(data=2, stage=2), moe_cfg)):
+            m = create_mesh(MeshConfig(**kw), "cpu")
+            init = ts.sharded_init(0, c, opt, m)
+            res["unported"][case] = [_raised(fn) for fn in (
+                lambda: ts.state_shardings(c, m, opt),
+                lambda: ts.sharded_init(0, c, opt, m),
+                lambda: ts.reshard_state(init, c, opt, m),
+                lambda: ts.sharded_train_step(c, opt, m)(
+                    init, {"tokens": tokens % c.vocab_size}))]
     except BaseException:  # noqa: BLE001 - reported to the parent
         res["error"] = traceback.format_exc()
     finally:
@@ -465,13 +478,25 @@ def test_layout_helpers(world):
     assert all(res["shard_params_equal_sharded_init"] for res in ranks)
 
 
+STILL_RAISES = {
+    "seq": "pipeline meshes compose with data/fsdp/tensor; axes ['seq'] > 1 "
+           "are not supported inside the pipelined trunk yet",
+    "expert": "pipeline meshes compose with data/fsdp/tensor; axes "
+              "['expert'] > 1 are not supported inside the pipelined trunk "
+              "yet",
+    "stage": "ray_tpu_torch.models.moe has no pipelined trunk; pipeline "
+             "meshes (stage>1) currently support the llama family"}
+
+
 @pytest.mark.parametrize("axis", ["stage", "seq", "expert"])
 def test_unported_axes_raise(world, axis):
+    """What still raises, with the reference's messages: a stage mesh with
+    seq ("seq") or expert ("expert") > 1, and the MoE family, which has no
+    pipelined trunk, on a stage mesh ("stage").  state_shardings,
+    sharded_init and reshard_state lay those meshes out; the error comes
+    from sharded_train_step or its first step."""
     _, ranks = world
     for res in ranks:
-        # sharded_train_step, state_shardings, reshard_state, sharded_init
+        # state_shardings, sharded_init, reshard_state, the step
         msgs = res["unported"][axis]
-        assert len(msgs) == 4
-        for msg in msgs:
-            assert msg is not None and axis in msg
-            assert "queue 1 item 6" in msg
+        assert msgs == [None, None, None, STILL_RAISES[axis]]
