@@ -193,11 +193,48 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  f32 combine; each with its recompute and backward), the
                  flash kernels and the rest.
 
+  10. vit_small_f32 -- a ViT with head_dim 32 (dim 128, 4 heads, 2 layers,
+                 32-pixel images in 8-pixel patches; `vit-debug`'s head_dim
+                 16 takes no kernel) in f32 (TF32 off) on CUDA and on the
+                 CPU from the same params and images: logits and loss
+                 within 1e-4, the first gradients within 1e-4 of each
+                 leaf's largest; the grad pass (remat: each layer's
+                 forward again in the backward) launches the forward twice
+                 a layer and dQ and dK/dV once, non-causal, on the f32
+                 (FMA) routes only.
+  11. resnet_small_f32 -- `resnet-debug` on 33-pixel images (odd at every
+                 stride 2) the same way, with cuDNN's TF32 off (printed:
+                 f32 convolutions on TF32 would fail 1e-4); no flash
+                 kernel runs.
+  12. train_vit_b16 -- ViT-B/16 (Dosovitskiy et al. 2021: 224 px, patch 16,
+                 dim 768, 12 x 12 heads, mlp 3072, 1000 classes) in bf16
+                 with weights from seed 0, batch 256 of seeded random images,
+                 `default_optimizer` over a TrainState built by hand from
+                 the family's params (head_bias f32): one warm-up step,
+                 three timed steps (images/s, MFU = images/s x 3 x forward
+                 FLOPs / 989 TFLOP/s, peak memory), the counters zeroed just
+                 before and read just after: 24 forward (12 and their remat
+                 recompute), 12 dQ and 12 dK/dV launches a step, all on the
+                 wgmma route; then one step under torch.profiler split into
+                 flash, GEMM and conv, optimizer, norm and elementwise.
+  13. train_resnet18 -- ResNet-18 (He et al. 2016, the reference's
+                 GroupNorm 32 in place of BatchNorm) the same way at 224 px
+                 in bf16 with its f32 parameter tree; no flash kernel.
+  14. rl_learners_f32 -- each of the eight algorithms' learners (PPO,
+                 IMPALA, APPO, DQN, BC, MARWIL, SAC, CQL) on CUDA and on the
+                 CPU from the same params and a seeded batch: the first
+                 minibatch's gradients within 1e-4 of each leaf's largest,
+                 the first update's metrics within 1e-4 (its params are
+                 reported: Adam's first step may flip an element whose
+                 gradient is noise near zero).
+
 Phase `kernels` also holds the flash forward and backward at the Mixtral
-layer's shape ([2, 4096, 32, 8, 128], bf16, timed).
+layer's shape ([2, 4096, 32, 8, 128], bf16, timed) and at the ViT-B/16
+layer's ([256, 197, 12, 12, 64], bf16, non-causal, timed).
 
 The line before the last is {"kernels": [...]}, one entry per kernel
-(the forward, dQ and dK/dV: one per dtype route); the last line is
+(the forward, dQ and dK/dV: one per dtype route) with each main path's
+launches and each timed layer's times; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -523,6 +560,10 @@ def phase_kernels(timer):
         # 8 kv heads.
         flash_case(timer, "mixtral_train_layer", 2, 4096, 32, 8, 128, bf,
                    timed=True),
+        # One ViT-B/16 layer call in train_vit_b16: b 256 x 197 tokens, 12
+        # heads of 64, no GQA, non-causal.
+        flash_case(timer, "vit_b16_layer", 256, 197, 12, 12, 64, bf,
+                   causal=False, timed=True),
         flash_case(timer, "8b_single_bucket512", 1, 512, 32, 8, 128, bf),
         flash_case(timer, "ragged_1000", 1, 1000, 32, 8, 128, bf),
         flash_case(timer, "bf16_hd64_ragged", 2, 333, 8, 2, 64, bf),
@@ -595,6 +636,10 @@ def phase_kernels(timer):
         # The Mixtral layer call of train_mixtral_4l.
         flash_bwd_case(timer, "mixtral_train_layer", 2, 4096, 32, 8, 128,
                        bf, timed=True),
+        # The ViT-B/16 layer call of train_vit_b16 (non-causal, head_dim
+        # 64).
+        flash_bwd_case(timer, "vit_b16_layer", 256, 197, 12, 12, 64, bf,
+                       causal=False, timed=True),
         flash_bwd_case(timer, "8b_heads", 1, 1024, 32, 8, 128, bf),
         flash_bwd_case(timer, "ragged_1000", 1, 1000, 8, 4, 128, bf),
         flash_bwd_case(timer, "bf16_hd64_ragged", 2, 333, 8, 2, 64, bf),
@@ -2541,6 +2586,356 @@ def phase_train_mixtral_4l(card):
     return launches
 
 
+# ------------------------------------------- phases 10-11: vision, f32
+VISION_TOL = 1e-4
+
+
+def grads_rel(gpu: list, cpu: list) -> float:
+    """Largest |g - ref| over each leaf's largest |ref|, over the leaves."""
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(gpu, cpu))
+
+
+def vision_small(mod, cfg, params, batch) -> tuple[dict, dict]:
+    """A vision model's no-grad logits, loss and first gradients on CUDA
+    and on the CPU from the same params and batch; the CUDA grad pass's
+    flash launches."""
+    from ray_tpu_torch.train.step import param_leaves
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        params_d = tree_to(params, device)
+        for p in param_leaves(params_d):
+            p.requires_grad_(True)
+        b = {k: v.to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            logits = mod.forward(params_d, b["images"], cfg)
+        n0 = flash_counts()
+        loss = mod.loss_fn(params_d, b, cfg)
+        loss.backward()
+        out[device] = {"logits": logits.cpu(), "loss": loss.item(),
+                       "grads": [p.grad.cpu()
+                                 for p in param_leaves(params_d)],
+                       "launches": {n: c - n0[n] for n, c in
+                                    flash_counts().items()}}
+    gpu, cpu = out["cuda"], out["cpu"]
+    row = {"logits_max_abs_diff": max_err(gpu["logits"], cpu["logits"]),
+           "logits_max_abs": float(cpu["logits"].abs().max()),
+           "loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"],
+           "first_step_grads_rel": grads_rel(gpu["grads"], cpu["grads"]),
+           "launches_grad_pass": gpu["launches"], "tol": VISION_TOL}
+    np.testing.assert_allclose(gpu["logits"].numpy(), cpu["logits"].numpy(),
+                               atol=VISION_TOL, rtol=VISION_TOL)
+    np.testing.assert_allclose(gpu["loss"], cpu["loss"], rtol=VISION_TOL)
+    if row["first_step_grads_rel"] > VISION_TOL:
+        raise AssertionError(f"gradients differ: {row}")
+    if any(cpu["launches"].values()):
+        raise AssertionError(f"a CPU pass launched a kernel: {cpu}")
+    return row, gpu["launches"]
+
+
+def vision_batch(n, size, n_classes, device="cpu", seed=SEED) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"images": torch.from_numpy(rng.normal(
+                size=(n, size, size, 3)).astype(np.float32)).to(device),
+            "labels": torch.from_numpy(rng.integers(
+                0, n_classes, size=n)).to(device)}
+
+
+def phase_vit_small():
+    """A ViT with head_dim 32 (`vit-debug`'s 16 takes no kernel), f32,
+    TF32 off: CUDA (the FMA flash kernels) against the CPU."""
+    from ray_tpu_torch.models import vit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = vit.ViTConfig(image_size=32, patch_size=8, dim=128, n_layers=2,
+                        n_heads=4, mlp_dim=256, n_classes=10,
+                        dtype=torch.float32)
+    params = vit.init_params(cfg, torch.Generator().manual_seed(SEED))
+    row, launches = vision_small(vit, cfg, params,
+                                 vision_batch(4, 32, cfg.n_classes))
+    L = cfg.n_layers
+    # remat: each layer's forward runs again in the backward.
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_fwd/fma": 2 * L,
+            "flash_attention_fwd/wgmma": 0,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dq/fma": L,
+            "flash_attention_bwd_dq/wgmma": 0,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_dkv/fma": L,
+            "flash_attention_bwd_dkv/wgmma": 0}
+    row = {"phase": "vit_small_f32", "dim": cfg.dim, "n_heads": cfg.n_heads,
+           "head_dim": cfg.head_dim, "n_layers": L, "tokens":
+           cfg.n_patches + 1, "batch": 4, "remat": cfg.remat, **row}
+    emit(row)
+    if launches != want:
+        raise AssertionError(f"vit_small: launches {launches} != {want}")
+    return launches
+
+
+def phase_resnet_small():
+    """`resnet-debug` (f32) on 33-pixel images, cuDNN's TF32 off: CUDA
+    against the CPU."""
+    from ray_tpu_torch.models import resnet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = resnet.resnet_configs()["resnet-debug"]
+    params = resnet.init_params(cfg, torch.Generator().manual_seed(SEED))
+    row, launches = vision_small(resnet, cfg, params,
+                                 vision_batch(4, 33, cfg.num_classes))
+    row = {"phase": "resnet_small_f32", "model": "resnet-debug",
+           "image_size": 33, "batch": 4,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32, **row}
+    emit(row)
+    if any(launches.values()):
+        raise AssertionError(f"resnet launched flash kernels: {launches}")
+
+
+# ------------------------------------- phases 12-13: vision at full width
+def vision_groups(kernels: dict) -> dict:
+    """Device ms and launches of a traced vision step by group: the
+    flash kernels, GEMMs and convolutions, the optimizer's multi-tensor
+    kernels, and the rest (norms and elementwise)."""
+    from ray_tpu_torch.tools.profile_serve import kernel_group
+
+    out = {}
+    for name, (ms, n) in kernels.items():
+        g, low = kernel_group(name), name.lower()
+        if g == "gemm" or any(k in low for k in (
+                "conv", "fprop", "dgrad", "wgrad", "implicit", "winograd")):
+            g = "gemm_conv"
+        elif "multi_tensor_apply" in low:
+            g = "optimizer"
+        elif g == "other":
+            g = "norm_elementwise"
+        acc = out.setdefault(g, [0.0, 0])
+        acc[0] += ms
+        acc[1] += n
+    return out
+
+
+def train_vision(card, mod, cfg, name, image_size, n_classes,
+                 fwd_flops) -> tuple[dict, dict]:
+    """Three timed `make_train_step` steps of a vision model in bf16 at
+    batch 256 of seeded random images, after one warm-up step (lr 0),
+    then one step under torch.profiler.  The TrainState is built by hand
+    from the family's own params (create_train_state casts every leaf to
+    cfg.dtype)."""
+    from ray_tpu_torch.tools.profile_serve import kernel_groups
+    from ray_tpu_torch.train.step import (TrainState, default_optimizer,
+                                          make_train_step, param_leaves)
+
+    batch_size, n_timed = 256, 3
+    opt = default_optimizer(total_steps=1000)
+    torch.cuda.reset_peak_memory_stats()
+    params = mod.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(SEED))
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    dtypes = sorted({str(p.dtype) for p in param_leaves(params)})
+    state = TrainState(params=params, opt_state=opt.init(params), step=0)
+    batch = vision_batch(batch_size, image_size, n_classes, "cuda")
+    step = make_train_step(cfg, opt, mod.loss_fn, device="cuda")
+    t0 = time.perf_counter()
+    state, m = step(state, batch)                      # warm-up, lr 0
+    loss0 = m["loss"].item()
+    warmup_s = time.perf_counter() - t0
+    losses, norms, step_ms = [], [], []
+    torch.cuda.synchronize()
+    zero_flash_counts()
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    launches = flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels, _ = kernel_groups(prof)
+    groups = vision_groups(kernels)
+    device_ms = sum(ms for ms, _ in groups.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    mean_ms = sum(step_ms) / len(step_ms)
+    images_per_s = batch_size / (mean_ms / 1e3)
+    row = {"phase": f"train_{name}", "card": card, "model": name,
+           "dtype": str(cfg.dtype), "param_dtypes": dtypes,
+           "params": cfg.num_params(), "batch": batch_size,
+           "image_size": image_size, "n_classes": n_classes,
+           "warmup_step_s": warmup_s, "first_loss": loss0,
+           "ln_classes": math.log(n_classes), "loss": losses,
+           "grad_norm": norms, "step_ms": step_ms, "mean_step_ms": mean_ms,
+           "images_per_s": images_per_s, "forward_flops_per_image":
+           fwd_flops, "mfu": images_per_s * 3 * fwd_flops / BF16_FLOPS,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_step": {n: c / n_timed
+                                 for n, c in launches.items()},
+           "traced_step_ms": traced_ms, "traced_device_ms": device_ms,
+           "traced_device_busy_share": device_ms / traced_ms,
+           "traced_groups": {g: {"ms": ms, "launches": n,
+                                 "share": ms / device_ms}
+                             for g, (ms, n) in sorted(groups.items())},
+           "traced_top_kernels": [{"name": n[:100], "ms": ms, "launches": c}
+                                  for n, (ms, c) in top]}
+    emit(row)
+    if not all(math.isfinite(x) for x in losses + norms + [loss0]):
+        raise AssertionError(f"non-finite loss or grad norm: {row}")
+    # One fixed batch: the warm-up (lr 0) and three small warm-up-schedule
+    # updates must lower its loss.  (At init ResNet's logits are far from
+    # uniform: its first loss sits well above ln(classes).)
+    if not losses[-1] < loss0:
+        raise AssertionError(f"the loss did not fall: {loss0} -> {losses}")
+    del state, m, prof
+    return row, launches
+
+
+def phase_train_vit_b16(card):
+    """ViT-B/16 (Dosovitskiy et al. 2021: 224 px, patch 16, dim 768, 12 x
+    12 heads, mlp 3072, 1000 classes) in bf16, remat on: 24 forward (12
+    and their recompute), 12 dQ and 12 dK/dV launches a step, all on the
+    wgmma route (head_dim 64, non-causal, 197 tokens)."""
+    from ray_tpu_torch.models import vit
+
+    cfg = vit.vit_configs()["vit-b16"]
+    row, launches = train_vision(card, vit, cfg, "vit_b16", cfg.image_size,
+                                 cfg.n_classes, cfg.forward_flops())
+    L, n_timed = cfg.n_layers, 3
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    got = {n: c / n_timed for n, c in launches.items()}
+    if any(got[n] != c or got[f"{n}/wgmma"] != c or got[f"{n}/fma"]
+           for n, c in want.items()):
+        raise AssertionError(f"train_vit_b16: launches per step {got} != "
+                             f"{want}, all bf16 (wgmma)")
+    fl = row["traced_groups"]
+    if any(fl.get(g, {}).get("launches") != c for g, c in (
+            ("flash_fwd", 2 * L), ("flash_bwd_dq", L),
+            ("flash_bwd_dkv", L))):
+        raise AssertionError(f"train_vit_b16: traced flash groups {fl}")
+    return launches
+
+
+def phase_train_resnet18(card):
+    """ResNet-18 (He et al. 2016, the reference's GroupNorm 32 in place of
+    BatchNorm) in bf16 on 224 px images, 1000 classes; the parameter tree
+    stays f32 (master weights).  No flash kernel on this path."""
+    from ray_tpu_torch.models import resnet
+
+    cfg = resnet.resnet_configs()["resnet18"]
+    row, launches = train_vision(card, resnet, cfg, "resnet18", 224,
+                                 cfg.num_classes, cfg.forward_flops(224))
+    if any(launches.values()) or row["param_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"train_resnet18: flash launches {launches} or "
+                             f"param dtypes {row['param_dtypes']}")
+    return launches
+
+
+# ------------------------------------------------ phase 14: RL learners
+RL_ALGOS = ("ppo", "impala", "appo", "dqn", "bc", "marwil", "sac", "cql")
+
+
+def rl_batch(algo: str, n: int = 64, t: int = 8, obs: int = 8,
+             actions: int = 4) -> dict:
+    """One seeded batch of what `algo`'s loss reads ([n, t] fragments with
+    episode ends and truncations for IMPALA and APPO)."""
+    rng = np.random.default_rng(RL_ALGOS.index(algo))
+    f32 = np.float32
+    lead = (n, t) if algo in ("impala", "appo") else (n,)
+    b = {"obs": rng.normal(size=(*lead, obs)).astype(f32),
+         "actions": rng.integers(0, actions, size=lead),
+         "next_obs": rng.normal(size=(*lead, obs)).astype(f32),
+         "rewards": rng.normal(size=lead).astype(f32),
+         "dones": (rng.random(lead) < 0.15).astype(f32),
+         "truncs": (rng.random(lead) < 0.1).astype(f32),
+         "logp": np.log(rng.uniform(0.1, 0.5, lead)).astype(f32),
+         "advantages": rng.normal(size=lead).astype(f32),
+         "value_targets": rng.normal(size=lead).astype(f32),
+         "q_targets": rng.normal(size=lead).astype(f32),
+         "returns": rng.normal(size=lead).astype(f32)}
+    return b
+
+
+def phase_rl_learners():
+    """Each algorithm's first update on CUDA against the CPU, f32 (TF32
+    off): the same initial params (the CPU learner's with its target
+    nets moved off the online ones, through set_params), the same batch
+    and minibatch order; the first
+    minibatch's gradients within 1e-4 of each leaf's largest and the
+    update's metrics within 1e-4.  The params after the update (two Adam
+    steps) are reported: Adam's first step moves an element by about lr
+    whatever its gradient, so an element whose gradient is rounding noise
+    near zero may step either way on the two devices (PERF.md, PR 9)."""
+    import importlib
+
+    from ray_tpu_torch.parallel.sharding import tree_map
+    from ray_tpu_torch.rl.learner import Learner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = {"ppo": "PPO", "impala": "IMPALA", "appo": "APPO", "dqn": "DQN",
+             "bc": "BC", "marwil": "MARWIL", "sac": "SAC", "cql": "CQL"}
+    rows = {}
+    for algo in RL_ALGOS:
+        cls = getattr(importlib.import_module(f"ray_tpu_torch.rl.{algo}"),
+                      names[algo])
+        config = cls.learner_config({"obs_dim": 8, "n_actions": 4,
+                                     "hidden": 64, "seed": SEED})
+        batch = rl_batch(algo)
+        n = len(batch["obs"])
+        cpu = Learner(config, cls.loss_builder, device="cpu")
+        gpu = Learner(config, cls.loss_builder, device="cuda")
+        # Target nets ("pi_t", "q1_t", ...) drifted from the online ones,
+        # as after some polyak syncs: while pi_t == pi, APPO's KL gradient
+        # on pi_t is rounding noise around zero.
+        rng = np.random.default_rng(SEED + 99)
+        start = {k: tree_map(lambda a: (a + 0.05 * rng.normal(
+                     size=a.shape)).astype(np.float32), v)
+                 if k.endswith("_t") else v
+                 for k, v in cpu.get_params_numpy().items()}
+        cpu.set_params(start)
+        gpu.set_params(start)
+        idx = np.arange(n)
+        np.random.default_rng(SEED + 17).shuffle(idx)
+        grads = {}
+        for label, ln in (("cuda", gpu), ("cpu", cpu)):
+            params = tree_to(ln.params, ln.device)
+            leaves = [p.requires_grad_(True) for _, p in
+                      named_leaves(params)]
+            mb = {k: ln._tensor(v[idx[:n // 2]]) for k, v in batch.items()}
+            loss, _ = ln._loss_fn(params, mb)
+            got = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads[label] = [torch.zeros_like(p).cpu() if g is None
+                            else g.cpu() for p, g in zip(leaves, got)]
+        m_gpu = gpu.update(batch, num_sgd_iter=1, minibatch_size=n // 2)
+        m_cpu = cpu.update(batch, num_sgd_iter=1, minibatch_size=n // 2)
+        p_gpu = dict(named_leaves(gpu.get_params_numpy()))
+        p_cpu = dict(named_leaves(cpu.get_params_numpy()))
+        rows[algo] = {
+            "grads_rel": grads_rel(grads["cuda"], grads["cpu"]),
+            "metrics_max_rel": max(abs(m_gpu[k] - v) / max(abs(v), 1e-6)
+                                   for k, v in m_cpu.items()),
+            "params_max_abs_diff": max(float(np.abs(p_gpu[k] - v).max())
+                                       for k, v in p_cpu.items()),
+            "loss_cuda": m_gpu["loss"], "loss_cpu": m_cpu["loss"]}
+        np.testing.assert_allclose(
+            [m_gpu[k] for k in sorted(m_cpu)],
+            [m_cpu[k] for k in sorted(m_cpu)], atol=1e-4, rtol=1e-4,
+            err_msg=f"rl_learners {algo}: metrics")
+    emit({"phase": "rl_learners_f32", "batch": 64, "fragment_steps": 8,
+          "obs_dim": 8, "n_actions": 4, "hidden": 64, "tol": 1e-4,
+          "algorithms": rows})
+    bad = {a: r for a, r in rows.items() if r["grads_rel"] > 1e-4}
+    if bad:
+        raise AssertionError(f"rl_learners: gradients differ: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2596,6 +2991,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_small = phase_moe_small()
     mixtral = phase_train_mixtral_4l(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vit_small = phase_vit_small()
+    phase_resnet_small()
+    vit_b16 = phase_train_vit_b16(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_resnet18(card)
+    phase_rl_learners()
 
     def entry(name, kernel, src, replaces, launches, row, part=None,
               errs=()):
@@ -2697,8 +3101,10 @@ def main() -> int:
                     (6, "flash_attention_bwd_dkv/fma")):
         if name.endswith("/fma"):
             kernels[i]["launches_moe_small_f32"] = moe_small[name]
+            kernels[i]["launches_vit_small_f32"] = vit_small[name]
         else:
             kernels[i]["launches_train_mixtral_4l"] = mixtral[name]
+            kernels[i]["launches_train_vit_b16"] = vit_b16[name]
     # Each bf16 kernel's times at the rlhf_350m and Mixtral layer shapes.
     for i, row, part in ((0, paged["350m_rlhf_decode"], None),
                          (1, fwd["350m_rlhf_score"], None),
@@ -2706,9 +3112,13 @@ def main() -> int:
                          (5, bwd["350m_rlhf_learner"], "dkv"),
                          (1, fwd["mixtral_train_layer"], None),
                          (3, bwd["mixtral_train_layer"], "dq"),
-                         (5, bwd["mixtral_train_layer"], "dkv")):
+                         (5, bwd["mixtral_train_layer"], "dkv"),
+                         (1, fwd["vit_b16_layer"], None),
+                         (3, bwd["vit_b16_layer"], "dq"),
+                         (5, bwd["vit_b16_layer"], "dkv")):
         pre = "" if part is None else f"{part}_"
-        key = ("mixtral_train_layer" if row["case"] == "mixtral_train_layer"
+        key = (row["case"] if row["case"] in ("mixtral_train_layer",
+                                              "vit_b16_layer")
                else "rlhf_350m_shape")
         kernels[i][key] = {
             "case": row["case"], "max_abs_err": row["max_abs_err"],

@@ -3,7 +3,9 @@ state, into the port.
 
 The caller turns each leaf into a numpy array (`np.asarray(leaf)`), so
 this module needs no JAX.  Keys, shapes and the stacked layer axis stay
-as they are; leaves are cast to the config's dtype on `device`.
+as they are; decoder leaves are cast to the config's dtype on `device`,
+vision leaves keep their own dtype (ViT's f32 `head_bias`, ResNet's f32
+tree).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models import resnet, vit
 from ray_tpu_torch.models.llama import LlamaConfig, lora_target_dims
 from ray_tpu_torch.train.step import (ClippedAdamW, TrainState,
                                       create_train_state, model_module,
@@ -30,24 +33,44 @@ def as_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else _tensor(x)
 
 
+def _convert(src, shapes, device, dtype, path=""):
+    """`src`'s leaves as tensors on `device`, checked against the shape
+    tree `shapes` key by key; cast to `dtype`, or kept in their own dtype
+    when it is None."""
+    if isinstance(shapes, dict):
+        if not isinstance(src, dict) or set(src) != set(shapes):
+            got = sorted(src) if isinstance(src, dict) else type(src)
+            raise ValueError(f"{path or 'params'}: keys {got} != "
+                             f"{sorted(shapes)}")
+        return {k: _convert(src[k], shapes[k], device, dtype, f"{path}/{k}")
+                for k in shapes}
+    t = _tensor(src)
+    if tuple(t.shape) != tuple(shapes):
+        raise ValueError(f"{path}: shape {tuple(t.shape)} != "
+                         f"{tuple(shapes)}")
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
 def params_from_jax(tree: dict, cfg: LlamaConfig, device="cuda") -> dict:
     """The port's parameter tree from the reference's (numpy leaves), for
     the config's model family (llama or moe)."""
-    def convert(src, shapes, path):
-        if isinstance(shapes, dict):
-            if not isinstance(src, dict) or set(src) != set(shapes):
-                got = sorted(src) if isinstance(src, dict) else type(src)
-                raise ValueError(f"{path or 'params'}: keys {got} != "
-                                 f"{sorted(shapes)}")
-            return {k: convert(src[k], shapes[k], f"{path}/{k}")
-                    for k in shapes}
-        t = _tensor(src)
-        if tuple(t.shape) != tuple(shapes):
-            raise ValueError(f"{path}: shape {tuple(t.shape)} != "
-                             f"{tuple(shapes)}")
-        return t.to(device=device, dtype=cfg.dtype)
+    return _convert(tree, model_module(cfg).param_shapes(cfg), device,
+                    cfg.dtype)
 
-    return convert(tree, model_module(cfg).param_shapes(cfg), "")
+
+def vit_params_from_jax(tree: dict, cfg: vit.ViTConfig,
+                        device="cuda") -> dict:
+    """The port's ViT tree from the reference's (numpy leaves), each leaf
+    in its own dtype (the tree's, and f32 for `head_bias`)."""
+    return _convert(tree, vit.param_shapes(cfg), device, None)
+
+
+def resnet_params_from_jax(tree: dict, cfg: resnet.ResNetConfig,
+                           device="cuda") -> dict:
+    """The port's ResNet tree from the reference's (numpy leaves), each
+    leaf in its own dtype (f32 in the reference's tree, whatever
+    cfg.dtype is)."""
+    return _convert(tree, resnet.param_shapes(cfg), device, None)
 
 
 def lora_adapter_from_jax(adapter: dict, cfg: LlamaConfig,

@@ -1,12 +1,16 @@
 """Attention dispatcher (port of ray_tpu/ops/attention.py).
 
-On CUDA tensors, causal self-attention (q_len == k_len, no offset) with
-head_dim 32, 64 or 128 goes through the flash autograd Function (forward
-kernel; dQ and dK/dV kernels in the backward) at any sequence length: the
-kernels mask the ragged edge, so the TPU's seq % 128 and head_dim % 128
-tiling gates do not apply.  Any other CUDA call raises.  CPU tensors take
-the plain version, `xla_attention`, as the reference does off-TPU; both
-paths carry gradients.
+On CUDA tensors, self-attention (q_len == k_len, no offset), causal or not
+(the vision encoders' is not), with head_dim 32, 64 or 128 goes through
+the flash autograd Function (forward kernel; dQ and dK/dV kernels in the
+backward) at any sequence length: the kernels mask the ragged edge, so
+the TPU's seq % 128 and head_dim % 128 tiling gates do not apply.  The
+reference sends non-causal calls to `xla_attention` even on the TPU; its
+Pallas kernel computes them all the same, and the port routes every shape
+a kernel takes to it.  Any other CUDA call (cross-attention, an offset,
+another head_dim) raises.  CPU tensors take the plain version,
+`xla_attention`, as the reference does off-TPU; both paths carry
+gradients.
 
 DTensor inputs (the sharded train step) that split batch and heads only
 are a whole attention problem on every shard: the local shards go through
@@ -70,12 +74,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _local_attention(q, k, v, causal, q_offset)
     if not q.is_cuda:
         return xla_attention(q, k, v, causal=causal, q_offset=q_offset)
-    if (causal and q.shape[1] == k.shape[1] and q.shape[-1] in HEAD_DIMS
+    if (q.shape[1] == k.shape[1] and q.shape[-1] in HEAD_DIMS
             and isinstance(q_offset, int) and q_offset == 0):
-        return flash_attention(q, k, v, causal=True)
+        return flash_attention(q, k, v, causal=causal)
     raise ValueError(
-        "attention on CUDA takes causal self-attention (q_len == k_len, "
-        f"q_offset 0) with head_dim in {HEAD_DIMS}; got q {tuple(q.shape)}, "
+        "attention on CUDA takes self-attention (q_len == k_len, q_offset "
+        f"0) with head_dim in {HEAD_DIMS}; got q {tuple(q.shape)}, "
         f"k {tuple(k.shape)}, causal={causal}, q_offset={q_offset!r}")
 
 

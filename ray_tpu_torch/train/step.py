@@ -58,7 +58,13 @@ ADAM_EPS = 1e-8          # optax.adamw's default, outside the square root
 
 def model_module(cfg: llama.LlamaConfig):
     """Model family for a config: moe for MoEConfig (a LlamaConfig
-    subclass, so it is checked first), llama for LlamaConfig."""
+    subclass, so it is checked first), llama for LlamaConfig.  Any other
+    config raises TypeError: the reference's would hand a vision config
+    to llama.  Vision trains through `make_train_step(cfg, opt,
+    loss_fn=vit.loss_fn)` (or resnet's) on a TrainState built from the
+    family's own params, whose leaves keep their dtypes (ViT's f32
+    head_bias, ResNet's f32 tree), which create_train_state would cast to
+    cfg.dtype."""
     if isinstance(cfg, moe.MoEConfig):
         return moe
     if not isinstance(cfg, llama.LlamaConfig):
@@ -182,7 +188,8 @@ def create_train_state(seed: int, cfg: llama.LlamaConfig,
 def make_train_step(cfg: llama.LlamaConfig, optimizer: ClippedAdamW,
                     loss_fn: Callable | None = None,
                     device=None) -> Callable:
-    """Returns step(state, batch) -> (state, metrics).  The batch's arrays
+    """Returns step(state, batch) -> (state, metrics), with the family's
+    loss_fn unless one is given (vision passes its own).  The batch's arrays
     move to `device` (cuda by default); the state must live there.
     Metrics: "loss", the pre-clip "grad_norm" (device scalars) and "step".
     Parameters and optimizer state update in place."""

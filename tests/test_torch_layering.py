@@ -46,6 +46,20 @@ def test_walk_covers_the_package_and_chip_smoke():
                 "ray_tpu_torch/serve/lora.py",
                 "ray_tpu_torch/models/llama.py",
                 "ray_tpu_torch/models/moe.py",
+                "ray_tpu_torch/models/vit.py",
+                "ray_tpu_torch/models/resnet.py",
+                "ray_tpu_torch/models/convert.py",
+                "ray_tpu_torch/rl/models.py",
+                "ray_tpu_torch/rl/learner.py",
+                "ray_tpu_torch/rl/algorithm.py",
+                "ray_tpu_torch/rl/ppo.py",
+                "ray_tpu_torch/rl/impala.py",
+                "ray_tpu_torch/rl/appo.py",
+                "ray_tpu_torch/rl/dqn.py",
+                "ray_tpu_torch/rl/bc.py",
+                "ray_tpu_torch/rl/marwil.py",
+                "ray_tpu_torch/rl/sac.py",
+                "ray_tpu_torch/rl/cql.py",
                 "ray_tpu_torch/parallel/comm.py",
                 "ray_tpu_torch/parallel/ring.py",
                 "ray_tpu_torch/parallel/pipeline.py",

@@ -23,7 +23,11 @@ from the JAX `sharded_init` state (its host tree, or the TrainState
   that stayed on fsdp 4;
 - what still raises: a stage mesh with seq or expert > 1, and the MoE
   family on a stage mesh (tests/test_torch_parallel_trunks.py holds the
-  three axes themselves).
+  three axes themselves);
+- the vision family under `shard_params` by its logical axes: the ViT
+  loss (`vit-debug`) on fsdp 2 x tensor 2, as tests/test_vit.py does on
+  eight devices, and the ResNet loss (`resnet-debug`, 17-pixel images)
+  on data 4, each against the single-device JAX loss on the same tree.
 
 No test boots the ray_tpu runtime."""
 import dataclasses
@@ -46,6 +50,8 @@ LAYOUTS = {"data4": dict(data=4),
            "data2_tensor2": dict(data=2, tensor=2)}
 SHARD_LAYOUTS = ("data2_fsdp2", "data2_tensor2")
 N_STEPS = 3
+VISION_LAYOUTS = {"vit": dict(data=1, fsdp=2, tensor=2),
+                  "resnet": dict(data=4)}
 LOSS_TOL = dict(rtol=1e-4)
 PARAM_TOL = dict(atol=5e-5, rtol=1e-4)
 OPT = dict(lr=1e-3, warmup=1, total_steps=100)
@@ -215,7 +221,7 @@ def _rank_main(rank, store, tree_path, out_dir):
         from ray_tpu_torch.train import step as ts
 
         with open(tree_path, "rb") as f:
-            tree, tokens = pickle.load(f)
+            tree, tokens, vision = pickle.load(f)
         cfg = dataclasses.replace(llama.llama_configs()["debug"],
                                   dtype=torch.float32)
         opt = ts.default_optimizer(**OPT)
@@ -265,6 +271,7 @@ def _rank_main(rank, store, tree_path, out_dir):
                             ts.param_leaves(init.params)))
         res["plain_passes"] = with_sharding_constraint(
             torch.ones(2), ("batch",)) is not None
+        res["vision"] = _vision_losses(vision)
         # What still raises, as in the reference: a stage mesh with seq or
         # expert > 1, and MoE (no pipelined trunk) on a stage mesh.  Every
         # other entry point takes those meshes.
@@ -291,6 +298,90 @@ def _rank_main(rank, store, tree_path, out_dir):
             pickle.dump(res, f)
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _vision_case(name):
+    """(port module, f32 config, converter) of a vision family."""
+    from ray_tpu_torch.models import convert, resnet, vit
+
+    if name == "vit":
+        return vit, dataclasses.replace(vit.vit_configs()["vit-debug"],
+                                        dtype=torch.float32), \
+            convert.vit_params_from_jax
+    return resnet, resnet.resnet_configs()["resnet-debug"], \
+        convert.resnet_params_from_jax
+
+
+def _vision_inputs():
+    """{family: (numpy params, numpy batch)}: the port's init from a
+    seeded generator, 8 images and labels from a numpy seed."""
+    out = {}
+    for i, name in enumerate(VISION_LAYOUTS):
+        mod, cfg, _ = _vision_case(name)
+        tree = _np_tree(mod.init_params(cfg,
+                                        torch.Generator().manual_seed(i)))
+        size = cfg.image_size if name == "vit" else 17
+        n_classes = cfg.n_classes if name == "vit" else cfg.num_classes
+        rng = np.random.default_rng(20 + i)
+        out[name] = (tree, {
+            "images": rng.normal(size=(8, size, size, 3)).astype(np.float32),
+            "labels": rng.integers(0, n_classes, 8).astype(np.int32)})
+    return out
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
+def _vision_losses(vision):
+    """On the ranks: each family's loss with its params laid out by
+    param_logical_axes on its mesh and the batch split over data x
+    fsdp (collective)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.parallel.sharding import shard_params
+    from ray_tpu_torch.train import step as ts
+
+    out = {}
+    for name, kw in VISION_LAYOUTS.items():
+        mod, cfg, convert = _vision_case(name)
+        tree, batch = vision[name]
+        mesh = create_mesh(MeshConfig(**kw), "cpu")
+        params = shard_params(convert(tree, cfg, "cpu"),
+                              mod.param_logical_axes(cfg), mesh)
+        sharded = [p for p in ts.param_leaves(params)
+                   if any(not pl.is_replicate() for pl in p.placements)]
+        b = ts.batch_shardings(mesh)
+        loss = mod.loss_fn(params, {k: distribute_tensor(
+            torch.from_numpy(v), b.mesh, b.placements)
+            for k, v in batch.items()}, cfg)
+        out[name] = {"loss": float(loss.full_tensor() if isinstance(
+            loss, DTensor) else loss), "sharded_leaves": len(sharded)}
+    return out
+
+
+def _jax_vision_losses(vision):
+    """The single-device JAX loss of each family on the same tree."""
+    import jax
+    import jax.numpy as jnp
+
+    from ray_tpu.models import resnet as jr
+    from ray_tpu.models import vit as jv
+
+    out = {}
+    for name, (tree, batch) in vision.items():
+        if name == "vit":
+            mod, cfg = jv, dataclasses.replace(jv.vit_configs()["vit-debug"],
+                                               dtype="float32")
+        else:
+            mod, cfg = jr, jr.resnet_configs()["resnet-debug"]
+        out[name] = float(jax.jit(lambda p, b, m=mod, c=cfg: m.loss_fn(
+            p, b, c))(jax.tree.map(jnp.asarray, tree),
+                      {k: jnp.asarray(v) for k, v in batch.items()}))
+    return out
 
 
 def _jax_tree(state):
@@ -373,8 +464,9 @@ def world(tmp_path_factory):
     js, cfg, opt, meshes = _jax_setup()
     init = js.sharded_init(jax.random.PRNGKey(0), cfg, opt, meshes["data4"])
     tree_path = tmp / "tree.pkl"
+    vision = _vision_inputs()
     with open(tree_path, "wb") as f:
-        pickle.dump((_jax_tree(init), tokens), f)
+        pickle.dump((_jax_tree(init), tokens, vision), f)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, str(tmp / "store"), str(tree_path),
@@ -384,6 +476,7 @@ def world(tmp_path_factory):
         p.start()
     try:
         jax_out = _jax_side(init, tokens)
+        jax_out["vision"] = _jax_vision_losses(vision)
         deadline = time.monotonic() + JOIN_S
         for p in procs:
             p.join(timeout=max(0.0, deadline - time.monotonic()))
@@ -500,3 +593,19 @@ def test_unported_axes_raise(world, axis):
         # state_shardings, sharded_init, reshard_state, the step
         msgs = res["unported"][axis]
         assert msgs == [None, None, None, STILL_RAISES[axis]]
+
+
+@pytest.mark.parametrize("family", list(VISION_LAYOUTS))
+def test_sharded_vision_loss_matches_jax(world, family):
+    """ViT on fsdp 2 x tensor 2 and ResNet on data 4: the loss with the
+    params laid out by param_logical_axes equals the single-device JAX
+    loss on every rank."""
+    jax_out, ranks = world
+    for res in ranks:
+        got = res["vision"][family]
+        np.testing.assert_allclose(got["loss"], jax_out["vision"][family],
+                                   **LOSS_TOL)
+    # ViT's embed / heads / mlp dims split over fsdp and tensor; ResNet's
+    # params all replicate on a data-only mesh (its batch splits).
+    assert (ranks[0]["vision"][family]["sharded_leaves"] > 0) == (
+        family == "vit")
