@@ -228,6 +228,33 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  reported: Adam's first step may flip an element whose
                  gradient is noise near zero).
 
+  15. dreamer_f32 -- one DreamerV3 update (the reference's defaults:
+                 deter 64, 4 x 4 latents, hidden 64, B 8, T 16, H 10; f32,
+                 TF32 off) on CUDA and on the CPU from the same params, a
+                 seeded CartPole batch and the same fixed Gumbel noise
+                 through the algorithm's `gumbel` seam: the ten metrics
+                 within 1e-4, every leaf's gradient within 1e-4 of its
+                 largest; the params after the update are reported.
+  16. dreamer_cartpole -- the reference test's DreamerV3 configuration
+                 (CartPole, one env, 256 env steps and 3 updates a step(),
+                 seed 0) on CUDA: six step()s (the world-model loss must
+                 drop, nothing NaN, episodes complete), ms an update timed
+                 alone, env steps/s of collection alone, and one update
+                 under torch.profiler (busy share: a tiny eager scan model
+                 is expected to be host-bound).  No flash kernel runs.
+  17. trainer_350m -- the trainer stack at `bench-350m` (bf16): the
+                 `ProcessGroupBackend` forms a one-rank NCCL group (file://
+                 store) over an in-process worker group, `host_broadcast`
+                 of the parameters (a copy at one rank), the device feed
+                 (`iter_device_batches`, pinned memory and a side stream)
+                 of batch 8 x 2048 from a seeded numpy iterator, a warm-up
+                 and five timed `sharded_train_step`s on a data=1 mesh:
+                 the warm-up loss equal to train_350m_sharded's first to
+                 the bit, step ms against train_350m_sharded's, 24
+                 launches a step of each flash kernel on wgmma (counted
+                 into the kernels line), a traced step's busy share; the
+                 group is left at the end.
+
 Phase `kernels` also holds the flash forward and backward at the Mixtral
 layer's shape ([2, 4096, 32, 8, 128], bf16, timed) and at the ViT-B/16
 layer's ([256, 197, 12, 12, 64], bf16, non-causal, timed).
@@ -1942,8 +1969,10 @@ def phase_train_350m_sharded(card):
         if any(per != want for per in rec["launches"]):
             raise AssertionError(f"train_350m_sharded {name}: launches "
                                  f"{rec['launches']} != {want}")
-    return {n: sum(per[n] for per in out["sharded"]["launches"])
-            for n in want}
+    return {"launches": {n: sum(per[n] for per in out["sharded"]["launches"])
+                         for n in want},
+            "mean_step_ms": row["sharded"]["mean_step_ms"],
+            "loss": out["sharded"]["loss"]}
 
 
 # ------------------------------------------------------ phase 7: online RLHF
@@ -2936,6 +2965,308 @@ def phase_rl_learners():
         raise AssertionError(f"rl_learners: gradients differ: {bad}")
 
 
+# ------------------------------------------------- phase 15-16: DreamerV3
+DREAMER_TOL = 1e-4
+
+
+def fixed_gumbel(shape) -> np.ndarray:
+    """Standard Gumbel noise, fixed per shape (the same at every step)."""
+    shape = tuple(int(s) for s in shape)
+    u = np.random.default_rng([len(shape), *shape]).uniform(
+        np.finfo(np.float32).tiny, 1.0, size=shape)
+    return (-np.log(-np.log(u))).astype(np.float32)
+
+
+def dreamer_batch(seed: int = 3, n: int = 300, rows: int = 8,
+                  length: int = 16) -> dict:
+    """[rows, length] windows of a seeded random-action CartPole run."""
+    from ray_tpu_torch.rl.env import make_env
+
+    env, rng = make_env("CartPole-v1", seed=seed), np.random.default_rng(seed)
+    cols = {k: [] for k in ("obs", "actions", "rewards", "dones", "truncs")}
+    obs = env.reset()
+    for _ in range(n):
+        a = int(rng.integers(2))
+        nxt, r, term, trunc = env.step(a)
+        for k, v in zip(cols, (obs, a, r, float(term),
+                               float(trunc and not term))):
+            cols[k].append(v)
+        obs = env.reset() if term or trunc else nxt
+    data = {k: np.asarray(v, np.int64 if k == "actions" else np.float32)
+            for k, v in cols.items()}
+    starts = rng.integers(0, n - length, size=rows)
+    return {k: np.stack([v[s:s + length] for s in starts])
+            for k, v in data.items()}
+
+
+def phase_dreamer_small():
+    """One DreamerV3 update (the reference's defaults, f32, TF32 off) on
+    CUDA against the CPU from the same params, a seeded CartPole batch and
+    the same fixed Gumbel noise through the `gumbel` seam: the metrics
+    within 1e-4 and every leaf's gradient within 1e-4 of its largest; the
+    params after the update (one Adam step each) are reported."""
+    from ray_tpu_torch.rl.dreamerv3 import DreamerV3
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    algos = {"cuda": DreamerV3({"seed": SEED}, device="cuda"),
+             "cpu": DreamerV3({"seed": SEED}, device="cpu")}
+    algos["cuda"].set_params(algos["cpu"].get_params_numpy())
+    batch = dreamer_batch()
+    out = {}
+    zero_flash_counts()
+    for label, algo in algos.items():
+        algo.gumbel = lambda shape, d=algo.device: torch.from_numpy(
+            fixed_gumbel(shape)).to(d)
+        m = algo.update({k: algo._tensor(v) for k, v in batch.items()})
+        out[label] = {
+            "metrics": {k: float(v) for k, v in m.items()},
+            "grads": [p.grad.cpu() for _, p in named_leaves(algo.params)],
+            "params": dict(named_leaves(algo.get_params_numpy()))}
+    gpu, cpu = out["cuda"], out["cpu"]
+    row = {"phase": "dreamer_f32", "batch_rows": 8, "batch_length": 16,
+           "horizon": algos["cpu"].cfg["horizon"], "tol": DREAMER_TOL,
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "metrics_cuda": gpu["metrics"], "metrics_cpu": cpu["metrics"],
+           "metrics_max_abs_diff": max(abs(gpu["metrics"][k] - v)
+                                       for k, v in cpu["metrics"].items()),
+           "first_update_grads_rel": grads_rel(gpu["grads"], cpu["grads"]),
+           "params_max_abs_diff": max(
+               float(np.abs(gpu["params"][k] - v).max())
+               for k, v in cpu["params"].items()),
+           "flash_launches": flash_counts()}
+    emit(row)
+    np.testing.assert_allclose(
+        [gpu["metrics"][k] for k in sorted(cpu["metrics"])],
+        [cpu["metrics"][k] for k in sorted(cpu["metrics"])],
+        atol=DREAMER_TOL, rtol=DREAMER_TOL, err_msg="dreamer_f32: metrics")
+    if row["first_update_grads_rel"] > DREAMER_TOL:
+        raise AssertionError(f"dreamer_f32: gradients differ: {row}")
+    if any(row["flash_launches"].values()):
+        raise AssertionError("dreamer_f32: a flash kernel ran")
+
+
+def phase_dreamer_cartpole(card):
+    """The reference test's DreamerV3 run (tests/test_rl_extra.py
+    `test_dreamerv3_machinery`: CartPole, one env, 256 env steps and 3
+    updates a step(), seed 0) on CUDA: six step()s, the world-model loss
+    first and last (it must drop), ms a step, then 20 updates timed alone
+    (ms an update), 256 env steps of collection timed alone (env steps/s),
+    and one update under torch.profiler (device busy share)."""
+    from ray_tpu_torch.rl.dreamerv3 import DreamerV3Config
+    from ray_tpu_torch.tools.profile_serve import kernel_groups
+
+    config = (DreamerV3Config()
+              .environment("CartPole-v1")
+              .env_runners(num_env_runners=1)
+              .training(train_batch_size=256, updates_per_step=3)
+              .debugging(seed=0))
+    algo = config.build(device="cuda")
+    wm, step_ms, nan = [], [], []
+    zero_flash_counts()
+    for _ in range(6):
+        t0 = time.perf_counter()
+        m = algo.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if "learner/wm_loss" in m:
+            wm.append(m["learner/wm_loss"])
+            nan += [k for k in ("learner/actor_loss", "learner/critic_loss",
+                                "learner/entropy") if m[k] != m[k]]
+    batch = {k: algo._tensor(v) for k, v in algo._sample_sequences().items()}
+    for _ in range(3):
+        algo.update(batch)
+    torch.cuda.synchronize()
+    n_upd = 20
+    t0 = time.perf_counter()
+    for _ in range(n_upd):
+        algo.update(batch)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3 / n_upd
+    t0 = time.perf_counter()
+    algo._sample_with(algo._policy_logits_fn(), 256)
+    collect_s = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        algo.update(batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels, groups = kernel_groups(prof)
+    device_ms = sum(ms for ms, _ in groups.values())
+    row = {"phase": "dreamer_cartpole", "card": card, "env": "CartPole-v1",
+           "num_env_runners": 1, "train_batch_size": 256,
+           "updates_per_step": 3, "steps": 6, "seed": 0,
+           "wm_loss": wm, "wm_loss_first": wm[0] if wm else None,
+           "wm_loss_last": wm[-1] if wm else None, "step_ms": step_ms,
+           "env_steps_per_s_through_step": 6 * 256 / (sum(step_ms) / 1e3),
+           "episodes": len(algo._episode_returns),
+           "episode_return_mean": float(np.mean(
+               algo._episode_returns[-100:])),
+           "update_ms": update_ms, "updates_per_s": 1e3 / update_ms,
+           "collect_256_s": collect_s, "env_steps_per_s": 256 / collect_s,
+           "traced_update_ms": traced_ms, "traced_device_ms": device_ms,
+           "traced_device_busy_share": device_ms / traced_ms,
+           "traced_launches": sum(n for _, n in groups.values()),
+           "traced_groups": {g: {"ms": ms, "launches": n}
+                             for g, (ms, n) in sorted(groups.items())},
+           "flash_launches": flash_counts()}
+    emit(row)
+    if len(wm) < 2 or not wm[-1] < wm[0] or nan:
+        raise AssertionError(f"dreamer_cartpole: the world-model loss did "
+                             f"not drop, or NaN in {nan}: {wm}")
+    if not algo._episode_returns or any(row["flash_launches"].values()):
+        raise AssertionError(f"dreamer_cartpole: {row}")
+
+
+# ------------------------------------------- phase 17: the trainer stack
+def phase_trainer_350m(card, sharded: dict):
+    """`bench-350m` through the trainer stack on one card: the
+    `ProcessGroupBackend` forms a one-rank NCCL group (file:// store in a
+    temporary directory) over an in-process worker group; `host_broadcast`
+    of the state (at world size 1: a copy); `iter_device_batches` feeds
+    batch 8 x 2048 from a seeded numpy iterator (its first batch is
+    train_350m_sharded's); then a warm-up step and five timed
+    `sharded_train_step`s on a data=1 mesh, against train_350m_sharded's
+    step in the same run: the warm-up loss equal to its first to the bit,
+    24 launches a step of each flash kernel on wgmma, step ms, and one
+    traced step's busy share.  The group is left whatever happens."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.data.iterator import iter_device_batches
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.parallel.sharding import tree_map
+    from ray_tpu_torch.tools.profile_serve import kernel_groups
+    from ray_tpu_torch.train.backend import (LocalWorkerGroup,
+                                             ProcessGroupBackend)
+    from ray_tpu_torch.train.session import host_broadcast
+    from ray_tpu_torch.train.step import (create_train_state,
+                                          default_optimizer, reshard_state,
+                                          sharded_train_step)
+
+    cfg = llama.llama_configs()["bench-350m"]
+    batch_size, seq, n_timed = 8, 2048, 5
+    opt = default_optimizer(total_steps=1000)
+
+    def batches(n):
+        rng = np.random.default_rng(SEED)
+        for _ in range(n):
+            tokens = rng.integers(0, cfg.vocab_size, size=(batch_size, seq))
+            yield {"inputs": tokens, "targets": tokens}
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    group = LocalWorkerGroup()
+    backend = ProcessGroupBackend(device="cuda",
+                                  init_method=f"file://{store}/store",
+                                  timeout_s=300.0)
+    try:
+        t0 = time.perf_counter()
+        backend.on_start(group)
+        init_s = time.perf_counter() - t0
+        pg = {"backend": dist.get_backend(),
+              "world_size": dist.get_world_size(),
+              "device": torch.cuda.current_device()}
+        state = create_train_state(SEED, cfg, opt, device="cuda")
+        tree = tree_map(torch.Tensor.detach, state.params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = host_broadcast(tree)
+        torch.cuda.synchronize()
+        broadcast_ms = (time.perf_counter() - t0) * 1e3
+        del tree
+        mesh = create_mesh(MeshConfig(data=1), device_type="cuda")
+        state = reshard_state(create_train_state(SEED, cfg, opt, "cuda",
+                                                 params=params),
+                              cfg, opt, mesh)
+        del params
+        feed_ms = []
+        fed = []
+        it = iter_device_batches(batches(2 + n_timed), device="cuda",
+                                 dtypes={"inputs": np.int64,
+                                         "targets": np.int64})
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                break
+            torch.cuda.synchronize()
+            feed_ms.append((time.perf_counter() - t0) * 1e3)
+            fed.append(b)
+        step = sharded_train_step(cfg, opt, mesh)
+        state, m = step(state, fed[0])              # warm-up, lr 0
+        loss0 = float(m["loss"])
+        torch.cuda.synchronize()
+        zero_flash_counts()
+        losses, norms, step_ms = [], [], []
+        for b in fed[1:1 + n_timed]:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        launches = flash_counts()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step(state, fed[-1])
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        _, groups = kernel_groups(prof)
+    finally:
+        backend.on_shutdown(group)
+        shutil.rmtree(store, ignore_errors=True)
+    left = dist.is_initialized()
+    del state, step, fed
+    gc.collect()
+    torch.cuda.empty_cache()
+    mean_ms = sum(step_ms) / len(step_ms)
+    tps = batch_size * seq / (mean_ms / 1e3)
+    device_ms = sum(ms for ms, _ in groups.values())
+    row = {"phase": "trainer_350m", "card": card, "model": "bench-350m",
+           "dtype": "bfloat16", "batch": batch_size, "seq": seq,
+           "process_group": pg, "backend_init_s": init_s,
+           "host_broadcast_ms": broadcast_ms,
+           "host_broadcast_world_size": pg["world_size"],
+           "host_broadcast_bytes": 2 * cfg.num_params(),
+           "feed_ms_per_batch": feed_ms,
+           "feed_bytes_per_batch": 2 * batch_size * seq * 8,
+           "warmup_loss": loss0,
+           "train_350m_sharded_first_loss": sharded["loss"][0],
+           "loss": losses, "grad_norm": norms, "step_ms": step_ms,
+           "mean_step_ms": mean_ms, "tokens_per_s": tps,
+           "mfu": tps * cfg.flops_per_token() / BF16_FLOPS,
+           "train_350m_sharded_mean_step_ms": sharded["mean_step_ms"],
+           "launches": launches,
+           "launches_per_step": {n: c / n_timed
+                                 for n, c in launches.items()},
+           "traced_step_ms": traced_ms, "traced_device_ms": device_ms,
+           "traced_device_busy_share": device_ms / traced_ms,
+           "traced_groups": {g: {"ms": ms, "launches": n}
+                             for g, (ms, n) in sorted(groups.items())},
+           "group_left_after_shutdown": not left}
+    emit(row)
+    if pg["backend"] != "nccl" or pg["world_size"] != 1 or left:
+        raise AssertionError(f"trainer_350m: process group {pg}, "
+                             f"still initialised: {left}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"trainer_350m: non-finite: {row}")
+    if loss0 != sharded["loss"][0]:
+        raise AssertionError(f"trainer_350m: warm-up loss {loss0} != "
+                             f"train_350m_sharded's {sharded['loss'][0]}")
+    if any(c != (0 if n.endswith("/fma") else n_timed * cfg.n_layers)
+           for n, c in launches.items()):
+        raise AssertionError(f"trainer_350m: flash launches {launches} != "
+                             f"{cfg.n_layers} per step, all bf16 routes")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3000,6 +3331,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_resnet18(card)
     phase_rl_learners()
+    phase_dreamer_small()
+    phase_dreamer_cartpole(card)
+    trainer = phase_trainer_350m(card, sharded)
 
     def entry(name, kernel, src, replaces, launches, row, part=None,
               errs=()):
@@ -3079,7 +3413,9 @@ def main() -> int:
         small_dense["flash_attention_fwd/fma"]
     for i, name in ((1, "flash_attention_fwd"), (3, "flash_attention_bwd_dq"),
                     (5, "flash_attention_bwd_dkv")):
-        kernels[i]["launches_train_350m_sharded"] = sharded[f"{name}/wgmma"]
+        kernels[i]["launches_train_350m_sharded"] = \
+            sharded["launches"][f"{name}/wgmma"]
+        kernels[i]["launches_trainer_350m"] = trainer[f"{name}/wgmma"]
     # The online RLHF loop: the f32 routes at `debug`, bf16 at bench-350m.
     for i, name in enumerate(("paged_decode_attention",
                               "flash_attention_fwd/wgmma",

@@ -73,6 +73,24 @@ def resnet_params_from_jax(tree: dict, cfg: resnet.ResNetConfig,
     return _convert(tree, resnet.param_shapes(cfg), device, None)
 
 
+def dreamer_params_from_jax(tree: dict, device=None) -> dict:
+    """The port's DreamerV3 tree from the reference's
+    `dreamer_params_init` tree (numpy leaves): the same keys and shapes
+    (the widths read off the tree), f32 on `device` (cuda by default)."""
+    from ray_tpu_torch.rl.dreamerv3 import param_shapes
+
+    device = resolve_device(device, "dreamer_params_from_jax")
+    try:
+        dims = dict(obs_dim=np.shape(tree["enc"]["w0"])[0],
+                    n_actions=np.shape(tree["actor"]["w1"])[1],
+                    deter=np.shape(tree["gru_b"])[0] // 3,
+                    stoch=np.shape(tree["prior"]["w1"])[1],
+                    hidden=np.shape(tree["enc"]["w0"])[1])
+    except (KeyError, TypeError, IndexError) as e:
+        raise ValueError(f"not a DreamerV3 tree: {e!r}") from None
+    return _convert(tree, param_shapes(**dims), device, torch.float32)
+
+
 def lora_adapter_from_jax(adapter: dict, cfg: LlamaConfig,
                           device="cuda") -> dict:
     """The port's adapter from the reference's {"rank", "targets": {t:

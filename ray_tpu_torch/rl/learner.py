@@ -43,6 +43,31 @@ from ray_tpu_torch.train.step import param_leaves
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8)     # optax.adam's defaults
 
 
+def batch_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A batch column on `device`: floating arrays f32 (as jax.numpy makes
+    them without x64), integer arrays int64, bools as they are."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.is_floating_point():
+        t = t.float()
+    elif t.dtype != torch.bool:
+        t = t.long()
+    return t.to(device)
+
+
+def copy_params(params: dict, src: dict) -> None:
+    """Copy a tree (numpy or tensor leaves, `params`' keys and shapes)
+    into `params`' tensors in place."""
+    def put(p, x):
+        x = as_tensor(x)
+        if tuple(x.shape) != tuple(p.shape):
+            raise ValueError(f"set_params: shape {tuple(x.shape)} != "
+                             f"{tuple(p.shape)}")
+        p.copy_(x)
+
+    with torch.no_grad():
+        tree_map(put, params, src)
+
+
 def _default_params(generator, obs_dim, n_actions, hidden):
     return models.policy_value_init(generator, obs_dim, n_actions,
                                     hidden=hidden)
@@ -74,12 +99,7 @@ class Learner:
         self._post_fn = post(config) if post else None
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if t.is_floating_point():
-            t = t.float()
-        elif t.dtype != torch.bool:
-            t = t.long()
-        return t.to(self.device)
+        return batch_tensor(a, self.device)
 
     def _update(self, batch: dict):
         """One minibatch: loss, gradients of every leaf, Adam, post."""
@@ -120,15 +140,7 @@ class Learner:
     def set_params(self, params_np: dict) -> None:
         """Copy a tree (numpy or tensor leaves, the learner's keys and
         shapes) into the learner's tensors."""
-        def put(p, src):
-            src = as_tensor(src)
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"set_params: shape {tuple(src.shape)} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(src)
-
-        with torch.no_grad():
-            tree_map(put, self.params, params_np)
+        copy_params(self.params, params_np)
 
     def get_state(self) -> dict:
         """Checkpointable state (ray: Learner.get_state): the params and

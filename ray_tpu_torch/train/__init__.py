@@ -1,2 +1,3 @@
-"""Training: the single-device and sharded step (`step.py`) and
-checkpoints (`checkpoint.py`)."""
+"""Training: the single-device and sharded step (`step.py`), checkpoints
+(`checkpoint.py`), the process-group backend over a train worker group
+(`backend.py`) and the state broadcast to joining ranks (`session.py`)."""

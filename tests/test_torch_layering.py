@@ -60,6 +60,13 @@ def test_walk_covers_the_package_and_chip_smoke():
                 "ray_tpu_torch/rl/marwil.py",
                 "ray_tpu_torch/rl/sac.py",
                 "ray_tpu_torch/rl/cql.py",
+                "ray_tpu_torch/rl/env.py",
+                "ray_tpu_torch/rl/replay.py",
+                "ray_tpu_torch/rl/dreamerv3.py",
+                "ray_tpu_torch/train/backend.py",
+                "ray_tpu_torch/train/session.py",
+                "ray_tpu_torch/data/iterator.py",
+                "ray_tpu_torch/api.py",
                 "ray_tpu_torch/parallel/comm.py",
                 "ray_tpu_torch/parallel/ring.py",
                 "ray_tpu_torch/parallel/pipeline.py",
