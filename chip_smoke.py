@@ -163,6 +163,42 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  every step.  A second trainer from the same seed must
                  sample the same version-0 tokens; the equality of the
                  param hashes after as many steps is reported.
+  7c. rlhf_actors_small_f32 -- the RLHF actor topology on a `LocalRuntime`
+                 (serve/runtime.py: actors in this process, each on its own
+                 threads): 2 rollout workers and the learner as actors, the
+                 packed weight broadcast (`collective.broadcast_pytree`),
+                 at `debug` in f32 (TF32 off) on CUDA with 7's knobs but
+                 temperature 0 and kl_coeff 0.1 (greedy groups give zero
+                 advantages; the KL term moves the params).  After each of
+                 three steps the learner's params are within 1e-4 of the
+                 in-process loop's (`num_rollout_workers=0`) from the same
+                 params, and both workers hold the learner's version.  A
+                 `broadcast_pytree` from this process (rank 0) to a worker
+                 gives its engine the sent tree to the bit.  Counters zeroed
+                 before the actor run, read after: the paged kernel and the
+                 f32 (FMA) forward, dQ and dK/dV launched, dQ and dK/dV once
+                 per layer per update, no bf16 route.
+  7d. rlhf_actors_350m -- the same topology at `bench-350m` in bf16 with
+                 7b's knobs: 2 rollout actors and the learner actor on the
+                 one card.  One warm-up step and four timed steps (step s;
+                 completion tokens/s over both workers, beside rlhf_350m's
+                 one worker; update s; weight-sync ms, each engine's swap
+                 ms (staging to copy done) and the packed bytes, with the
+                 pack alone timed three times before; the engines'
+                 weight_version equal to the learner's after every sync),
+                 counters zeroed before the timed steps and
+                 read after (the paged kernel replays x layers x K over both
+                 engines, the forward on bf16 only, dQ and dK/dV 24 per
+                 update on bf16 only, every timed window a replay), and one
+                 step under torch.profiler (the busy share as the union of
+                 kernel intervals over the wall: the two engines' streams
+                 overlap).  Then two crash runs on a trainer with
+                 checkpoint_every=1: a worker killed at rollout entry
+                 (`rl.rollout_step` crash; the group is regenerated and
+                 rollout_regens is 1), and the learner killed in the sync
+                 window (`rl.weight_sync` crash; it resumes from the
+                 newest checkpoint, learner_restarts is 1 and epoch
+                 advances); after both, `kv_check` on every worker.
 
   8. moe_small_f32 -- the MoE family (`moe-debug`, f32, TF32 off) on CUDA
                  and on the CPU from the same params and tokens (batch 2 x
@@ -2338,6 +2374,356 @@ def phase_rlhf_350m(card):
     if not row["v0_tokens_equal_second_run"]:
         raise AssertionError("rlhf_350m: a second trainer from the same "
                              "seed sampled other version-0 tokens")
+    return launches, row["mean"]
+
+
+# ------------------------------- phases 7c-7d: the RLHF actor topology
+def params_worker():
+    """LLMRolloutWorker that hands out a copy of its engine's weights."""
+    from ray_tpu_torch.rl.rollout_llm import LLMRolloutWorker
+
+    class ParamsWorker(LLMRolloutWorker):
+        def engine_params(self):
+            return self.engine.params_snapshot()[0]
+
+    return ParamsWorker
+
+
+def wait_swapped(rt, workers, version: int, timeout: float = 60.0) -> list:
+    """Each worker engine's weight_version, once all equal `version` (the
+    swap lands between windows, after recv_weights staged it)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        vs = [rt.get(w.stats.remote(), timeout=60.0)["weight_version"]
+              for w in workers]
+        if vs == [version] * len(workers) or time.monotonic() > deadline:
+            return vs
+        time.sleep(0.005)
+
+
+def swap_ms(rt, workers) -> list:
+    """Each engine's last weight swap: from staging to the copy done."""
+    return [rt.get(w.stats.remote(), timeout=60.0)["engine"]
+            ["last_weight_sync_ms"] for w in workers]
+
+
+def actor_graphs(rt, workers) -> dict:
+    """Graph accounting summed over the workers' engines."""
+    out = {"decode_windows": 0, "graph_replays": 0, "graph_captures": 0}
+    for w in workers:
+        st = rt.get(w.stats.remote(), timeout=60.0)["engine"]
+        for k in out:
+            out[k] += st[k]
+    return out
+
+
+def union_ms(prof) -> float:
+    """Device time as the union of the kernels' intervals (streams of
+    concurrent engines overlap, so a sum would count twice)."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False))
+    total, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        total += cur[1] - cur[0]
+    return total / 1e3
+
+
+def phase_rlhf_actors_small():
+    """The actor topology at `debug` in f32 on a LocalRuntime against the
+    in-process loop (see 7c in the module docstring)."""
+    from ray_tpu_torch.collective.collective import broadcast_pytree
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.rl.rlhf import RLHFConfig, RLHFTrainer
+    from ray_tpu_torch.serve.runtime import LocalRuntime
+    from ray_tpu_torch.train.step import param_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(llama.llama_configs()["debug"],
+                              dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(SEED))
+    base = dict(model=cfg, seed=SEED, n_prompts=4, prompt_len=10,
+                group_size=4, prompts_per_step=2, max_new_tokens=5,
+                temperature=0.0, kl_coeff=0.1, lr=1e-2, device="cuda",
+                engine=dict(max_batch=8, max_len=128, page_size=16,
+                            steps_per_sync=3))
+    n_steps = 3
+
+    def host(tree):
+        return [t.detach().to("cpu", copy=True) for t in param_leaves(tree)]
+
+    local = RLHFTrainer(RLHFConfig(**base, params=tree_to(params, "cuda")))
+    try:
+        want = []
+        for _ in range(n_steps):
+            local.step()
+            want.append(host(local.learner.params))
+    finally:
+        local.shutdown()
+    rt = LocalRuntime()
+    tr = RLHFTrainer(RLHFConfig(**base, params=tree_to(params, "cuda"),
+                                num_rollout_workers=2, remote_learner=True,
+                                runtime=rt, worker_cls=params_worker()))
+    try:
+        torch.cuda.synchronize()
+        zero_serve_counts()
+        diffs, versions, metrics = [], [], []
+        for i in range(n_steps):
+            m = tr.step()
+            metrics.append({k: m[k] for k in ("version", "loss", "kl",
+                                              "epoch", "rollout_regens")})
+            got = host(rt.get(tr.learner.get_params_numpy.remote(),
+                              timeout=300.0))
+            diffs.append(max(float((a - b).abs().max())
+                             for a, b in zip(got, want[i])))
+            versions.append(wait_swapped(rt, tr.workers, m["version"]))
+        torch.cuda.synchronize()
+        launches = rlhf_counts()
+        moved = max(float((a - b.cpu()).abs().max())
+                    for a, b in zip(got, param_leaves(params)))
+        # The packed broadcast from this process (rank 0) to worker 0.
+        w = tr.workers[0]
+        rt.init_collective_group(2, 0, "chip_smoke_rt")
+        rt.get(w.init_collective_group.remote(2, 1, "object_store",
+                                              "chip_smoke_rt"), timeout=60.0)
+        sent = tree_to(llama.init_params(
+            cfg, torch.Generator().manual_seed(SEED + 1)), "cuda")
+        recv = w.recv_weights.remote(99, "chip_smoke_rt")
+        broadcast_pytree(sent, 0, "chip_smoke_rt", runtime=rt, timeout=60.0)
+        rt.get(recv, timeout=60.0)
+        swapped = wait_swapped(rt, [w], 99)
+        eng = rt.get(w.engine_params.remote(), timeout=60.0)
+        roundtrip = swapped == [99] and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(param_leaves(eng), param_leaves(sent)))
+        rt.destroy_collective_group("chip_smoke_rt", "phase done")
+    finally:
+        tr.shutdown()
+        rt.shutdown()
+    row = {"phase": "rlhf_actors_small_f32", "model": "debug",
+           "dtype": "float32", "steps": n_steps, "workers": 2,
+           "remote_learner": True, "params_max_abs_diff": diffs,
+           "tol": 1e-4, "params_moved": moved, "metrics": metrics,
+           "engine_versions": versions, "broadcast_roundtrip_bitwise":
+           roundtrip, "launches": launches}
+    emit(row)
+    if not all(d <= 1e-4 for d in diffs) or moved <= 1e-4:
+        raise AssertionError(f"rlhf_actors_small: params {diffs}, moved "
+                             f"{moved}")
+    if any(v != [i + 1] * 2 for i, v in enumerate(versions)):
+        raise AssertionError(f"rlhf_actors_small: versions {versions}")
+    if not roundtrip:
+        raise AssertionError("rlhf_actors_small: the broadcast_pytree "
+                             "round trip was not bit for bit")
+    per_update = cfg.n_layers * n_steps
+    if (launches["paged_decode_attention"] == 0
+            or launches["flash_attention_fwd/fma"] == 0
+            or launches["flash_attention_fwd/wgmma"]
+            or any(launches[f"flash_attention_bwd_{k}/fma"] != per_update
+                   or launches[f"flash_attention_bwd_{k}/wgmma"]
+                   for k in ("dq", "dkv"))):
+        raise AssertionError(f"rlhf_actors_small: launches {launches}")
+    return launches
+
+
+def phase_rlhf_actors_350m(card, one_worker: dict):
+    """The actor topology at `bench-350m` in bf16 on the one card (see 7d
+    in the module docstring)."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.collective.collective import pack
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.rl.rlhf import RLHFConfig, RLHFTrainer
+    from ray_tpu_torch.serve.runtime import LocalRuntime
+    from ray_tpu_torch.tools.profile_serve import kernel_groups
+    from ray_tpu_torch.train.step import param_leaves
+
+    cfg = llama.llama_configs()["bench-350m"]
+    K = RLHF_350M["engine"]["steps_per_sync"]
+    n_timed = 4
+
+    # One tree for both trainers: the learner and each engine copy it.
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    packed = sum(t.numel() * t.element_size() for t in param_leaves(params))
+    pack_ms = []                    # the learner's half of a sync, alone
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = pack(param_leaves(params))
+        pack_ms.append((time.perf_counter() - t0) * 1e3)
+        if buf.nbytes != packed:
+            raise AssertionError(f"rlhf_actors_350m: packed {buf.nbytes}")
+        del buf
+
+    def trainer(rt, **kw):
+        return RLHFTrainer(RLHFConfig(
+            model=cfg, params=params, seed=SEED, num_rollout_workers=2,
+            remote_learner=True, runtime=rt, **RLHF_350M, **kw))
+
+    def row_of(m, step_s, versions):
+        r = m["rollout"]
+        return {"step_s": step_s, "rollout_s": r["gen_s_max"],
+                "swap_ms": swap_ms(rt, tr.workers),
+                "completion_tokens": r["rollout_tokens"],
+                "rollout_tokens_per_s": r["rollout_tokens"]
+                / r["gen_s_max"],
+                "update_s": m["update_s"],
+                "weight_sync_ms": m["step_weight_sync_ms"],
+                "versions": versions, "loss": m["loss"],
+                "reward_mean": m["reward_mean"]}
+
+    rt = LocalRuntime()
+    t0 = time.perf_counter()
+    tr = trainer(rt)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    steps = []
+    try:
+        t0 = time.perf_counter()
+        m = tr.step()                                  # warm-up
+        torch.cuda.synchronize()
+        warm = row_of(m, time.perf_counter() - t0,
+                      wait_swapped(rt, tr.workers, m["version"]))
+        torch.cuda.reset_peak_memory_stats()
+        g0 = actor_graphs(rt, tr.workers)
+        zero_serve_counts()
+        for _ in range(n_timed):
+            t0 = time.perf_counter()
+            m = tr.step()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            steps.append(row_of(m, step_s, wait_swapped(
+                rt, tr.workers, m["version"])))
+        torch.cuda.synchronize()
+        launches = rlhf_counts()
+        g1 = actor_graphs(rt, tr.workers)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            m = tr.step()
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        traced = row_of(m, traced_s, wait_swapped(rt, tr.workers,
+                                                  m["version"]))
+        _, groups = kernel_groups(prof)
+        busy_ms = union_ms(prof)
+        del prof
+    finally:
+        tr.shutdown()
+        rt.shutdown()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The crash runs: checkpoint_every=1, the failpoints of the reference.
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_rlhf_")
+    rt = LocalRuntime()
+    tr = trainer(rt, checkpoint_every=1, checkpoint_dir=ckpt)
+    try:
+        tr.step()
+        rt.arm("rl.rollout_step", "nth:1+crash", actor=tr.workers[0])
+        m = tr.step()
+        regen = {"version": m["version"],
+                 "rollout_regens": m["rollout_regens"],
+                 "worker_versions": wait_swapped(rt, tr.workers,
+                                                 m["version"])}
+        newest = tr.flush_checkpoints()
+        epoch0 = tr.stats()["epoch"]
+        rt.arm("rl.weight_sync", "nth:1+crash", actor=tr.learner)
+        m = tr.step()
+        st = tr.stats()
+        restart = {"update_version": m["version"], "newest_ckpt":
+                   newest[0], "resumed_version": st["version"],
+                   "learner_restarts": st["learner_restarts"],
+                   "epoch_before": epoch0, "epoch_after": st["epoch"],
+                   "worker_versions": wait_swapped(rt, tr.workers,
+                                                   st["version"])}
+        m = tr.step()
+        restart["next_version"] = m["version"]
+        restart["next_loss_finite"] = math.isfinite(m["loss"])
+        kv = [rt.get(w.kv_check.remote(), timeout=60.0)["ok"]
+              for w in tr.workers]
+    finally:
+        tr.shutdown()
+        rt.shutdown()
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del params
+
+    windows = g1["decode_windows"] - g0["decode_windows"]
+    replays = g1["graph_replays"] - g0["graph_replays"]
+
+    def mean(key):
+        return sum(s[key] for s in steps) / len(steps)
+
+    row = {"phase": "rlhf_actors_350m", "card": card, "model": "bench-350m",
+           "dtype": "bfloat16", "params": cfg.num_params(), "workers": 2,
+           "remote_learner": True, "runtime": "LocalRuntime",
+           "config": dict(RLHF_350M), "build_s": build_s,
+           "warmup_step": warm, "steps": steps,
+           "mean": {k: mean(k) for k in (
+               "step_s", "rollout_s", "rollout_tokens_per_s", "update_s",
+               "weight_sync_ms")},
+           "one_worker_rlhf_350m": {
+               "decode_tokens_per_s": one_worker["decode_tokens_per_s"],
+               "step_s": one_worker["step_s"],
+               "weight_sync_ms": one_worker["weight_sync_ms"]},
+           "packed_bytes": packed, "pack_ms": pack_ms,
+           "peak_mem_gb": peak_gb,
+           "launches": launches, "timed_windows": windows,
+           "timed_replays": replays, "traced_step": traced,
+           "traced_device_union_ms": busy_ms,
+           "traced_device_busy_share": busy_ms / (traced_s * 1e3),
+           "traced_device_sum_ms": sum(ms for ms, _ in groups.values()),
+           "traced_groups": {k: {"ms": ms, "launches": n}
+                             for k, (ms, n) in sorted(groups.items())},
+           "crash_rollout_worker": regen, "crash_learner": restart,
+           "kv_check_ok": kv}
+    emit(row)
+    for s_ in steps + [warm, traced]:
+        if s_["versions"] != [s_["versions"][0]] * 2 or \
+                not math.isfinite(s_["loss"]):
+            raise AssertionError(f"rlhf_actors_350m: step {s_}")
+    if any(s_["versions"][0] != i + 2 for i, s_ in enumerate(steps)):
+        raise AssertionError(f"rlhf_actors_350m: versions {steps}")
+    want_bwd = cfg.n_layers * n_timed
+    if (windows == 0 or replays != windows
+            or launches["paged_decode_attention"]
+            != replays * paged_per_replay(cfg, K)
+            or launches["flash_attention_fwd/wgmma"] == 0
+            or launches["flash_attention_fwd/fma"]
+            or any(launches[f"flash_attention_bwd_{k}/wgmma"] != want_bwd
+                   or launches[f"flash_attention_bwd_{k}/fma"]
+                   for k in ("dq", "dkv"))):
+        raise AssertionError(f"rlhf_actors_350m: launches {launches}, "
+                             f"{windows} windows, {replays} replays")
+    if regen["rollout_regens"] != 1 or regen["version"] != 2 \
+            or regen["worker_versions"] != [2, 2]:
+        raise AssertionError(f"rlhf_actors_350m: worker crash {regen}")
+    if (restart["learner_restarts"] != 1
+            or restart["resumed_version"] != restart["newest_ckpt"]
+            or restart["epoch_after"] <= restart["epoch_before"]
+            or restart["worker_versions"] != [restart["resumed_version"]] * 2
+            or restart["next_version"] != restart["resumed_version"] + 1
+            or not restart["next_loss_finite"]):
+        raise AssertionError(f"rlhf_actors_350m: learner crash {restart}")
+    if not all(kv):
+        raise AssertionError(f"rlhf_actors_350m: kv_check {kv}")
     return launches
 
 
@@ -3317,7 +3703,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rlhf_small = phase_rlhf_small()
-    rlhf = phase_rlhf_350m(card)
+    rlhf, rlhf_mean = phase_rlhf_350m(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    actors_small = phase_rlhf_actors_small()
+    actors = phase_rlhf_actors_350m(card, rlhf_mean)
     gc.collect()
     torch.cuda.empty_cache()
     moe_small = phase_moe_small()
@@ -3426,8 +3816,11 @@ def main() -> int:
                               "flash_attention_bwd_dkv/fma")):
         if i == 0 or name.endswith("/fma"):
             kernels[i]["launches_rlhf_small_f32"] = rlhf_small[name]
+            kernels[i]["launches_rlhf_actors_small_f32"] = \
+                actors_small[name]
         if i == 0 or name.endswith("/wgmma"):
             kernels[i]["launches_rlhf_350m"] = rlhf[name]
+            kernels[i]["launches_rlhf_actors_350m"] = actors[name]
     # The MoE slice: the f32 routes at moe-debug, bf16 at Mixtral's widths.
     for i, name in ((1, "flash_attention_fwd/wgmma"),
                     (2, "flash_attention_fwd/fma"),

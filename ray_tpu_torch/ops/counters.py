@@ -15,6 +15,7 @@ import contextlib
 import threading
 
 _tls = threading.local()
+_lock = threading.Lock()
 
 
 def count(fn, route: str | None = None) -> None:
@@ -26,9 +27,10 @@ def count(fn, route: str | None = None) -> None:
         if route is not None:
             rec[fn, route] += 1
         return
-    fn.launches += 1
-    if route is not None:
-        fn.launches_by_route[route] += 1
+    with _lock:
+        fn.launches += 1
+        if route is not None:
+            fn.launches_by_route[route] += 1
 
 
 @contextlib.contextmanager
@@ -46,8 +48,9 @@ def deferred():
 def credit(rec) -> None:
     """Add a deferred Counter to the wrappers' counts (one replay of what
     it recorded)."""
-    for (fn, route), n in rec.items():
-        if route is None:
-            fn.launches += n
-        else:
-            fn.launches_by_route[route] += n
+    with _lock:
+        for (fn, route), n in rec.items():
+            if route is None:
+                fn.launches += n
+            else:
+                fn.launches_by_route[route] += n

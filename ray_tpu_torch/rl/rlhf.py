@@ -1,9 +1,9 @@
-"""Online GRPO-style RLHF in one process: serve-engine rollouts -> learner
-update -> live weight sync (port of ray_tpu/rl/rlhf.py, local mode).
+"""Online GRPO-style RLHF: serve-engine rollouts -> learner update -> live
+weight sync (port of ray_tpu/rl/rlhf.py).
 
 The loop
 --------
-1. **Rollout**: an `LLMRolloutWorker` (rl/rollout_llm.py) generates K
+1. **Rollout**: `LLMRolloutWorker`s (rl/rollout_llm.py) generate K
    completions per prompt through the paged-KV serve engine; the radix
    prefix cache makes a GRPO group cost about one prompt prefill.
 2. **Update**: `GRPOLearner` computes group-relative advantages (reward
@@ -14,13 +14,34 @@ The loop
    defaults; moments in the parameters' dtype).  On CUDA the backward
    runs the flash dQ and dK/dV kernels.  The learner owns its parameter
    tensors (with requires_grad) and updates them in place.
-3. **Sync**: `update_weights` stages the learner's tensors themselves on
-   the engine (on the card, one device-to-device copy at the swap), and
-   the trainer waits until the engine has swapped (`weight_version`
-   flips) before it returns: the learner's next in-place update must not
-   reach the engine under the old version.  The engine swaps between
-   decode windows, so decode never drains.  Generation never lags the
-   learner by more than `max_weight_lag` versions.
+3. **Sync**: generation never lags the learner by more than
+   `max_weight_lag` versions; engines swap weights between decode
+   windows, so decode never drains.
+
+Topologies
+----------
+- `num_rollout_workers=0` (local): one worker and the learner in the
+  caller's process.  A sync stages the learner's tensors themselves on
+  the engine (on the card, one device-to-device copy at the swap), and
+  the trainer waits until the engine has swapped (`weight_version`
+  flips) before it returns: the learner's next in-place update must not
+  reach the engine under the old version.
+- `num_rollout_workers=W > 0`: W rollout workers as actors of
+  `cfg.runtime` (`serve/runtime.py`: a `LocalRuntime`, or a binding to a
+  cluster), prompt j to worker j % W, the trajectories' refs handed to
+  the learner, which resolves them through the runtime.  The learner is
+  an actor too with `remote_learner=True`, else it lives in the trainer.
+  A sync is one packed broadcast (`collective.broadcast_pytree`) from
+  the learner, rank 0, to every worker over an epoch-named group.
+
+Failure model (the reference's): a rollout actor that dies
+(`rl.rollout_step` crash) loses only its in-flight group: the trainer
+respawns it, pushes the current weights, and regenerates the group.  A
+learner actor that dies (`rl.weight_sync` crash) resumes from the newest
+completed async checkpoint; parked receivers are released through
+`destroy_collective_group(reason)` and the group re-forms at the next
+epoch.  `rollout_regens`, `learner_restarts` and `epoch` count it, in
+`step()`'s metrics and in `stats()`.
 
 Kill switches: RAY_TPU_RL_WEIGHT_SYNC=0 freezes the serving policy (read
 per call by the engine: the same-run frozen-policy A/B); `sync_every=0`
@@ -29,21 +50,22 @@ never syncs.
 Determinism: the minibatch order comes from a `torch.Generator` seeded
 by (seed + 101, version), sampling from the engine's counter-hash
 Gumbel-max, `params=None` weights from a `torch.Generator` seeded by
-`seed`: two runs from one seed are bit-identical on one device, but
-neither matches JAX's threefry streams.
+`seed`: two local runs from one seed are bit-identical on one device,
+but neither matches JAX's threefry streams.
 
-Differences from the reference (ROADMAP.md queue 3): `num_rollout_workers
-> 0` and `remote_learner=True` (rollout workers and the learner as
-actors, the collective weight broadcast, crash recovery) raise
-NotImplementedError: that path waits for the runtime seam (ROADMAP.md
-queue 1 item 5b).  `mesh` raises too.  `get_params_numpy` returns CPU
-tensors (numpy has no bf16).  Checkpoints are `train/checkpoint.py`'s
-torch format.  No tracing spans, metrics or failpoints yet.  The
-recovery counters of the reference's metrics and stats() (rollout_regens,
-learner_restarts, epoch) come with the actor topology: the reference's
-local mode never moves them from 0, so they are left out until then, and
-`rollout_retries` is not read.  `device` (an added config field) places
-the learner and the engine: CUDA unless "cpu" is asked for.
+Differences from the reference (ROADMAP.md queue 3): `cfg.runtime` (an
+added config field) carries every runtime call, and the actor topology
+needs one that makes actors (ValueError otherwise).  `mesh` raises: the
+port's mesh is one rank per device, so a sharded learner is a group of
+ranks and comes with LearnerGroup (ROADMAP.md queue 1 item 7).
+`get_params_numpy` returns CPU tensors (numpy has no bf16).  Checkpoints
+are `train/checkpoint.py`'s torch format.  The learner's metrics carry
+"update_s" (its own time, after the trajectories are in hand) and
+"rollout" (the trajectories' generation and scoring sums, and "gen_s_max",
+the slowest worker's generation).  No metrics registry or tracing emits
+beyond the runtime's `span` and `failpoint` hooks (item 1c).  `device` (an
+added config field) places the learner and the engines: CUDA unless
+"cpu" is asked for.
 """
 from __future__ import annotations
 
@@ -52,6 +74,7 @@ import hashlib
 import os
 import tempfile
 import time
+import uuid
 from typing import Any, Callable
 
 import numpy as np
@@ -61,15 +84,18 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.convert import as_tensor
 from ray_tpu_torch.parallel.sharding import tree_map
+from ray_tpu_torch.collective.collective import broadcast_pytree
 from ray_tpu_torch.rl import rollout_llm
+from ray_tpu_torch.serve.runtime import ServeRuntime, makes_actors
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.step import param_leaves
 
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8)     # optax.adam's defaults
-ACTOR_TOPOLOGY = (
-    "the actor topology (rollout workers or the learner as actors, the "
-    "collective weight broadcast, crash recovery) is not ported yet: "
-    "ROADMAP.md queue 1 item 5b; use num_rollout_workers=0")
+MESH_LEARNER = (
+    "GRPOLearner(mesh=...): the port's mesh is one rank per device "
+    "(parallel/mesh.py), so a sharded learner is a group of ranks; it "
+    "comes with LearnerGroup (ROADMAP.md queue 1 item 7, the mesh "
+    "learner)")
 
 
 @dataclasses.dataclass
@@ -93,8 +119,10 @@ class RLHFConfig:
     kl_coeff: float = 0.0
     adv_eps: float = 1e-4
     minibatch_size: int | None = None
-    # Topology: 0 rollout workers = everything in-process (the only
-    # topology ported); >0 and remote_learner raise NotImplementedError.
+    # Topology: 0 rollout workers = everything in-process (seeded,
+    # bit-deterministic); >0 = actors of `runtime` + the packed weight
+    # broadcast.  remote_learner puts the learner in its own actor
+    # (required for learner-crash recovery to be survivable).
     num_rollout_workers: int = 0
     remote_learner: bool = False
     # Weight sync: every `sync_every` updates (0 = never); generation may
@@ -110,18 +138,18 @@ class RLHFConfig:
     # Reward: "near_token" | "target_token" | callable(prompt, completion).
     reward: Any = "near_token"
     target_token: int | None = None
-    # Regen attempts per dead rollout worker: read by the actor topology
-    # only (the reference's local mode never reads it either), so here it
-    # has no effect.
-    rollout_retries: int = 2
+    rollout_retries: int = 2        # regen attempts per dead rollout
     # Extension points: custom rollout-worker / learner classes (same
     # constructor contracts as LLMRolloutWorker / GRPOLearner).
     worker_cls: Any = None
     learner_cls: Any = None
     name: str = "rlhf"
-    # The port's addition: where the learner and the engine run (None =
-    # cuda; "cpu" runs the plain versions).
+    # The port's additions: where the learner and the engines run (None =
+    # cuda; "cpu" runs the plain versions), and the runtime of the actor
+    # topology (serve/runtime.py: a LocalRuntime or a binding to a
+    # cluster; None is a process outside any cluster, local mode only).
     device: Any = None
+    runtime: Any = None
 
 
 def _to_config(config, overrides) -> RLHFConfig:
@@ -214,10 +242,9 @@ class GRPOLearner:
                  device=None, **overrides):
         cfg = _to_config(config, overrides)
         if mesh is not None:
-            raise NotImplementedError(
-                "GRPOLearner(mesh=...): the sharded learner is not ported "
-                "yet (ROADMAP.md queue 1 item 5b)")
+            raise NotImplementedError(MESH_LEARNER)
         self.cfg = cfg
+        self._runtime = cfg.runtime or ServeRuntime()
         self.mcfg = _model_config(cfg)
         self.device = resolve_device(
             device if device is not None else cfg.device, "GRPOLearner")
@@ -264,9 +291,13 @@ class GRPOLearner:
                                      (ratio * mask).sum() / denom)]
 
     def update(self, trajs) -> dict:
-        """One GRPO update over a trajectory batch or a list of them."""
-        trajs = list(trajs) if isinstance(trajs, (list, tuple)) \
-            else [trajs]
+        """One GRPO update over a trajectory batch or a list of them (or
+        of runtime refs to them, resolved here)."""
+        rt = self._runtime
+        trajs = [rt.get(t, timeout=600.0) if rt.is_ref(t) else t
+                 for t in (trajs if isinstance(trajs, (list, tuple))
+                           else [trajs])]
+        t0 = time.perf_counter()
         batch = _concat_trajs(trajs)
         B = batch["tokens"].shape[0]
         K = batch["group_size"]
@@ -292,6 +323,10 @@ class GRPOLearner:
             n_mb += 1
         loss, pi_loss, kl, ratio = (float(x) for x in out)
         self.version += 1
+        rollout = {k: sum(t.get(k, 0) for t in trajs) for k in (
+            "gen_s", "score_s", "rollout_tokens", "prefix_hit_tokens",
+            "prefill_tokens")}
+        rollout["gen_s_max"] = max(t.get("gen_s", 0.0) for t in trajs)
         return {
             "version": self.version,
             "loss": loss, "policy_loss": pi_loss, "kl": kl,
@@ -302,9 +337,33 @@ class GRPOLearner:
             "rollout_tokens": batch["rollout_tokens"],
             "batch_weight_version": batch["weight_version"],
             "minibatches": n_mb,
+            "update_s": time.perf_counter() - t0,
+            "rollout": rollout,
         }
 
     # ---------------------------------------------------- weight export
+    def broadcast_weights(self, group_name: str,
+                          src_rank: int = 0) -> int:
+        """Rank-0 side of the live weight sync: the param tree as one
+        packed broadcast (packed before this returns).  Failpoint
+        `rl.weight_sync` fires inside the sync window: a crash models the
+        learner dying mid-broadcast."""
+        self._runtime.failpoint("rl.weight_sync")
+        broadcast_pytree(self.params_tree(), src_rank, group_name,
+                         runtime=self._runtime)
+        return self.version
+
+    def init_collective_group(self, world_size: int, rank: int,
+                              backend: str = "object_store",
+                              group_name: str = "default") -> None:
+        """Join the weight-broadcast group (`backend` is the runtime's
+        business and not read)."""
+        self._runtime.init_collective_group(world_size, rank, group_name)
+
+    def deregister_collective_group(self, group_name: str) -> None:
+        """Drop this learner's state for a stale weight-sync epoch."""
+        self._runtime.deregister_collective_group(group_name)
+
     def params_tree(self) -> dict:
         """The learner's parameter tensors themselves (detached views, no
         copy): what a local weight sync stages on the engine.  They change
@@ -404,9 +463,12 @@ class GRPOLearner:
 
 
 class RLHFTrainer:
-    """The online loop driver, in one process: rollouts -> learner update
-    -> async checkpoint -> live weight sync.  Seeded and bit-deterministic
-    on one device."""
+    """The online loop driver: rollouts -> learner update -> async
+    checkpoint -> live weight sync, with rollout-actor and learner crash
+    recovery.  `num_rollout_workers=0` runs everything in-process (seeded,
+    bit-deterministic on one device); otherwise the rollout workers (and,
+    with `remote_learner`, the learner) are actors of `cfg.runtime` and
+    weight sync rides the packed broadcast."""
 
     def __init__(self, config: RLHFConfig | dict | None = None,
                  **overrides):
@@ -418,13 +480,19 @@ class RLHFTrainer:
             1, mcfg.vocab_size, cfg.prompt_len).tolist()
             for _ in range(cfg.n_prompts)]
         self._reward = _reward_fn(cfg)
+        self._uid = uuid.uuid4().hex[:8]
+        self._epoch = 0
+        self._group_formed = False
         self._prompt_cursor = 0
         self.version = 0
         self.weight_syncs = 0
         self.weight_sync_ms = 0.0
+        self.rollout_regens = 0
+        self.learner_restarts = 0
         self._newest_ckpt: tuple | None = None    # (version, path)
         self._worker_version: list[int] = []
         self._local = cfg.num_rollout_workers == 0
+        self._rt = cfg.runtime or ServeRuntime()
         self.workers: list = []
         self._build_learner()
         self._build_workers()
@@ -434,21 +502,151 @@ class RLHFTrainer:
         return dict(model=self.cfg.model, params=self.cfg.params,
                     seed=self.cfg.seed, engine=dict(self.cfg.engine),
                     reward_fn=self._reward,
-                    name=f"{self.cfg.name}-w{i}", device=self.cfg.device)
+                    name=f"{self.cfg.name}-w{i}", device=self.cfg.device,
+                    runtime=self.cfg.runtime)
+
+    def _learner_cls(self):
+        return self.cfg.learner_cls or GRPOLearner
+
+    def _worker_cls(self):
+        return self.cfg.worker_cls or rollout_llm.LLMRolloutWorker
+
+    def _spawn_learner(self):
+        return self._rt.remote(self._learner_cls()).options(
+            num_cpus=1).remote(self.cfg)
+
+    def _spawn_worker(self, i: int):
+        return self._rt.remote(self._worker_cls()).options(
+            num_cpus=1, max_concurrency=4).remote(**self._worker_kwargs(i))
 
     def _build_learner(self) -> None:
         if self.cfg.remote_learner and self._local:
             raise ValueError(
                 "remote_learner requires num_rollout_workers >= 1 "
                 "(a lone in-process loop has nothing to broadcast to)")
-        if self.cfg.remote_learner or not self._local:
-            raise NotImplementedError(ACTOR_TOPOLOGY)
-        self.learner = (self.cfg.learner_cls or GRPOLearner)(self.cfg)
+        if not self._local and not makes_actors(self.cfg.runtime):
+            raise ValueError(
+                f"num_rollout_workers={self.cfg.num_rollout_workers} needs "
+                "a runtime that makes actors: set RLHFConfig.runtime to a "
+                "LocalRuntime (serve/runtime.py; one process) or a binding "
+                "to a cluster, or use num_rollout_workers=0")
+        if self.cfg.remote_learner:
+            self.learner = self._spawn_learner()
+            # Fail fast if the actor cannot build (model typo etc.).
+            self._rt.get(self.learner.pid.remote(), timeout=300.0)
+        else:
+            self.learner = self._learner_cls()(self.cfg)
 
     def _build_workers(self) -> None:
-        wcls = self.cfg.worker_cls or rollout_llm.LLMRolloutWorker
-        self.workers = [wcls(**self._worker_kwargs(0))]
-        self._worker_version = [0]
+        if self._local:
+            self.workers = [self._worker_cls()(**self._worker_kwargs(0))]
+            self._worker_version = [0]
+            return
+        self.workers = [self._spawn_worker(i)
+                        for i in range(self.cfg.num_rollout_workers)]
+        self._rt.get([w.pid.remote() for w in self.workers], timeout=300.0)
+        self._worker_version = [0] * len(self.workers)
+
+    def _replace_worker(self, i: int) -> None:
+        """Respawn a dead rollout actor and bootstrap it to the current
+        policy with a direct weight push (it starts at version 0 from the
+        seed); the broadcast group re-forms at the next sync (membership
+        changed: a new epoch)."""
+        try:
+            self._rt.kill(self.workers[i])
+        except Exception:  # noqa: BLE001 - already dead
+            pass
+        if self._group_formed:
+            # The dead member invalidates the epoch: reap it now (N
+            # crashes must not leak N groups).
+            try:
+                self._rt.destroy_collective_group(
+                    self._group_name(),
+                    reason=f"rlhf rollout worker {i} replaced; epoch "
+                           f"{self._epoch} abandoned")
+            except Exception:  # noqa: BLE001 - best effort
+                pass
+        self.workers[i] = self._spawn_worker(i)
+        if self.version > 0:
+            # Remote learner: the call's ref is the argument, so the tree
+            # moves learner -> worker without the trainer holding it.
+            params = self.learner.get_params_numpy.remote() \
+                if self.cfg.remote_learner \
+                else self.learner.get_params_numpy()
+            v = self._rt.get(self.workers[i].update_weights.remote(
+                params, self.version), timeout=120.0)
+            self._worker_version[i] = v
+        self._group_formed = False
+
+    # ------------------------------------------------- learner recovery
+    def _learner_call(self, method: str, *args, timeout: float = 300.0):
+        fn = getattr(self.learner, method)
+        if self.cfg.remote_learner:
+            return self._rt.get(fn.remote(*args), timeout=timeout)
+        return fn(*args)
+
+    def _recover_learner(self) -> None:
+        """A dead learner actor resumes from the newest completed async
+        checkpoint (or from the seed's state when none finished); parked
+        broadcast waiters are released first."""
+        self.learner_restarts += 1
+        if self._group_formed:
+            self._rt.destroy_collective_group(
+                self._group_name(),
+                reason=f"rlhf learner died (restart "
+                       f"{self.learner_restarts}); weight sync epoch "
+                       f"{self._epoch} abandoned")
+            self._group_formed = False
+        try:
+            self._rt.kill(self.learner)
+        except Exception:  # noqa: BLE001
+            pass
+        self.learner = self._spawn_learner()
+        if self._newest_ckpt is not None:
+            self.version = self._learner_call("load", self._newest_ckpt[1])
+        else:
+            self.version = 0
+            self._learner_call("pid")
+
+    # -------------------------------------------------------- collective
+    def _group_name(self) -> str:
+        return f"rlhf_w:{self.cfg.name}:{self._uid}:{self._epoch}"
+
+    def _form_group(self) -> None:
+        """(Re-)form the weight-broadcast group: learner rank 0, rollout
+        workers ranks 1..W, a fresh epoch-suffixed name per membership
+        change."""
+        if self._epoch >= 1:
+            # Every member drops its own state for the previous epoch
+            # (best effort: a dead member is being replaced anyway).
+            prev = self._group_name()
+            try:
+                refs = [w.deregister_collective_group.remote(prev)
+                        for w in self.workers]
+                if self.cfg.remote_learner:
+                    refs.append(self.learner.deregister_collective_group
+                                .remote(prev))
+                else:
+                    self.learner.deregister_collective_group(prev)
+                self._rt.get(refs, timeout=60.0)
+            except Exception:  # noqa: BLE001 - best effort
+                pass
+        self._epoch += 1
+        name = self._group_name()
+        world = 1 + len(self.workers)
+        refs = []
+        if self.cfg.remote_learner:
+            refs.append(self.learner.init_collective_group.remote(
+                world, 0, "object_store", name))
+        else:
+            # In-trainer learner: rank 0 lives in this process.
+            self.learner.init_collective_group(world, 0, "object_store",
+                                               name)
+        refs += [w.init_collective_group.remote(
+            world, r + 1, "object_store", name)
+            for r, w in enumerate(self.workers)]
+        self._rt.get(refs, timeout=120.0)
+        self._group_formed = True
 
     # ----------------------------------------------------------- rollout
     def _next_prompts(self) -> list[list[int]]:
@@ -466,19 +664,47 @@ class RLHFTrainer:
                     eos_id=self.cfg.eos_id)
 
     def _gather_rollouts(self, prompts: list) -> list:
-        return [self.workers[0].rollout(prompts, **self._rollout_kwargs())]
+        """Dispatch prompt groups across workers: prompt j to worker
+        j % W.  Local mode returns trajectory dicts; actor mode the
+        rollout refs, which go to the learner untouched (it resolves them;
+        the trainer never holds the bulk).  A dead worker surfaces when
+        the learner resolves its ref: step() heals and regenerates."""
+        if self._local:
+            return [self.workers[0].rollout(prompts,
+                                            **self._rollout_kwargs())]
+        shards: dict[int, list] = {}
+        for j, p in enumerate(prompts):
+            shards.setdefault(j % len(self.workers), []).append(p)
+        kw = self._rollout_kwargs()
+        return [self.workers[i].rollout.remote(ps, **kw)
+                for i, ps in shards.items()]
+
+    def _heal_workers(self) -> None:
+        """Replace every dead rollout actor (a liveness probe each);
+        survivors keep their engines and prefix caches."""
+        for i, w in enumerate(self.workers):
+            try:
+                self._rt.get(w.pid.remote(), timeout=60.0)
+            except Exception:  # noqa: BLE001 - dead actor
+                self._replace_worker(i)
 
     # ------------------------------------------------------ weight sync
     def _sync_weights(self) -> None:
-        """Push the current learner policy to the engine, timed
-        end-to-end as weight_sync_ms.  Decode never pauses: the engine
-        swaps between sync windows."""
+        """Push the current learner policy to every engine, timed end to
+        end as weight_sync_ms.  Decode never pauses: engines swap between
+        decode windows."""
         t0 = time.perf_counter()
-        self._sync_weights_inner()
+        mode = "local" if self._local else (
+            "remote_learner" if self.cfg.remote_learner
+            else "driver_learner")
+        with self._rt.span("rl.weight_sync",
+                           attrs={"version": self.version, "mode": mode}):
+            self._sync_weights_inner()
         self.weight_syncs += 1
         self.weight_sync_ms += (time.perf_counter() - t0) * 1000.0
 
-    def _sync_weights_inner(self) -> None:
+    def _sync_local(self) -> None:
+        self._rt.failpoint("rl.weight_sync")
         v = self.learner.version
         ret = self.workers[0].update_weights(self.learner.params_tree(), v)
         if ret == v:
@@ -499,27 +725,131 @@ class RLHFTrainer:
                 time.sleep(0.001)
         self._worker_version[0] = ret
 
+    def _dispatch_broadcast(self) -> tuple:
+        """A remote learner's broadcast call and every receiver's, on the
+        current epoch's group."""
+        name = self._group_name()
+        bc = self.learner.broadcast_weights.remote(name)
+        return bc, [w.recv_weights.remote(self.version, name)
+                    for w in self.workers]
+
+    def _finish_broadcast(self, bc, recv) -> None:
+        self._rt.get(bc, timeout=300.0)
+        for i, r in enumerate(recv):
+            self._worker_version[i] = self._rt.get(r, timeout=300.0)
+
+    def _sync_weights_inner(self) -> None:
+        if self._local:
+            self._sync_local()
+        elif not self.cfg.remote_learner:
+            # Actor workers, in-trainer learner: dispatch every receiver
+            # first, then broadcast from this process.  A learner crash
+            # here is a trainer crash, so no recovery arm.
+            if not self._group_formed:
+                self._form_group()
+            name = self._group_name()
+            recv = [w.recv_weights.remote(self.version, name)
+                    for w in self.workers]
+            self.learner.broadcast_weights(name)
+            for i, r in enumerate(recv):
+                self._worker_version[i] = self._rt.get(r, timeout=300.0)
+        else:
+            if not self._group_formed:
+                self._form_group()
+            bc, recv = self._dispatch_broadcast()
+            try:
+                self._finish_broadcast(bc, recv)
+            except Exception:  # noqa: BLE001 - sync failed: diagnose
+                # A dead rollout worker or a collective deadline lands
+                # here too: probe the learner before condemning it
+                # (recovering a healthy learner would roll training back
+                # to the last checkpoint, or to the seed).
+                try:
+                    self._learner_call("pid", timeout=60.0)
+                    learner_dead = False
+                except Exception:  # noqa: BLE001
+                    learner_dead = True
+                if learner_dead:
+                    self._recover_learner()
+                else:
+                    # Release any receiver still parked on the stale
+                    # epoch, then replace whichever worker died.
+                    self._rt.destroy_collective_group(
+                        self._group_name(),
+                        reason="rlhf weight sync failed (rollout "
+                               "worker died mid-broadcast?); epoch "
+                               f"{self._epoch} abandoned")
+                    self._group_formed = False
+                    self._heal_workers()
+                # Drain the stale receivers, then sync again on a fresh
+                # epoch so every (possibly replaced) member lands on the
+                # current policy.
+                for r in recv:
+                    try:
+                        self._rt.get(r, timeout=60.0)
+                    except Exception:  # noqa: BLE001 - drained/aborted
+                        pass
+                self._form_group()
+                self._finish_broadcast(*self._dispatch_broadcast())
+
     def _lag_exceeded(self) -> bool:
         return (self.version - min(self._worker_version)
                 > self.cfg.max_weight_lag)
+
+    def _update_with_recovery(self, trajs) -> dict:
+        """Learner update with crash recovery.  A failure here is either
+        the learner dying (the liveness probe fails: rebuild from the
+        newest async checkpoint, retry) or a trajectory ref whose rollout
+        worker died (the probe passes: re-raise, and step() regenerates
+        the group)."""
+        try:
+            return self._learner_call("update", trajs)
+        except Exception:  # noqa: BLE001
+            if not self.cfg.remote_learner:
+                raise
+            try:
+                self._learner_call("pid", timeout=60.0)
+                alive = True
+            except Exception:  # noqa: BLE001
+                alive = False
+            if alive:
+                raise        # lost trajectories: step() regenerates
+            self._recover_learner()
+            return self._learner_call("update", trajs)
 
     # ------------------------------------------------------------- loop
     def step(self) -> dict:
         """One full cycle: rollout -> update -> (async checkpoint) ->
         (sync).  The staleness bound runs FIRST: generation must never
         start more than max_weight_lag versions behind.  Besides the
-        learner's metrics: "rollout" (generation and scoring seconds,
-        completion tokens, prefix-hit and prefilled tokens), "update_s"
-        and this step's "step_weight_sync_ms"."""
+        learner's metrics (with its "rollout" sums and "update_s"):
+        "weight_syncs", "rollout_regens", "learner_restarts", "epoch" and
+        this step's "step_weight_sync_ms"."""
         ms0 = self.weight_sync_ms
         if self.cfg.sync_every and self.version and self._lag_exceeded():
-            # sync_every=0 means NEVER sync — the lag bound only applies
+            # sync_every=0 means NEVER sync: the lag bound only applies
             # when sync is enabled at all.
             self._sync_weights()
-        trajs = self._gather_rollouts(self._next_prompts())
-        t0 = time.perf_counter()
-        metrics = self.learner.update(trajs)
-        update_s = time.perf_counter() - t0
+        prompts = self._next_prompts()
+        if self._local:
+            metrics = self._learner_call(
+                "update", self._gather_rollouts(prompts))
+        else:
+            metrics = last_err = None
+            for _attempt in range(1 + self.cfg.rollout_retries):
+                trajs = self._gather_rollouts(prompts)
+                try:
+                    metrics = self._update_with_recovery(trajs)
+                    last_err = None
+                    break
+                except Exception as e:  # noqa: BLE001 - rollout lost
+                    last_err = e
+                    self.rollout_regens += 1
+                    self._heal_workers()
+            if metrics is None:
+                raise RuntimeError(
+                    f"rollouts failed {1 + self.cfg.rollout_retries}x "
+                    "(workers crash-looping?)") from last_err
         self.version = metrics["version"]
         if self.cfg.checkpoint_every and \
                 self.version % self.cfg.checkpoint_every == 0:
@@ -528,10 +858,9 @@ class RLHFTrainer:
                 self.version % self.cfg.sync_every == 0:
             self._sync_weights()
         metrics["weight_syncs"] = self.weight_syncs
-        metrics["rollout"] = {k: sum(t[k] for t in trajs) for k in (
-            "gen_s", "score_s", "rollout_tokens", "prefix_hit_tokens",
-            "prefill_tokens")}
-        metrics["update_s"] = update_s
+        metrics["rollout_regens"] = self.rollout_regens
+        metrics["learner_restarts"] = self.learner_restarts
+        metrics["epoch"] = self._epoch
         metrics["step_weight_sync_ms"] = self.weight_sync_ms - ms0
         return metrics
 
@@ -540,35 +869,58 @@ class RLHFTrainer:
 
     def _checkpoint(self) -> None:
         """Async save; the PREVIOUS save is confirmed (waited) first and
-        becomes the newest resumable checkpoint."""
+        becomes the newest resumable checkpoint, so learner recovery never
+        points at a half-written directory."""
         base = self.cfg.checkpoint_dir
         if base is None:
             base = tempfile.mkdtemp(prefix="rlhf-ckpt-")
             self.cfg.checkpoint_dir = base
-        done = self.learner.ckpt_wait()
+        done = self._learner_call("ckpt_wait")
         if done is not None:
             self._newest_ckpt = done
         path = os.path.join(base, f"v{self.version:06d}")
-        self.learner.save_async(path)
+        self._learner_call("save_async", path)
 
     def flush_checkpoints(self) -> tuple | None:
         """Force the in-flight save durable."""
-        done = self.learner.ckpt_wait()
+        done = self._learner_call("ckpt_wait")
         if done is not None:
             self._newest_ckpt = done
         return self._newest_ckpt
 
     # ------------------------------------------------------------ admin
     def stats(self) -> dict:
-        return {
+        out = {
             "version": self.version,
             "weight_syncs": self.weight_syncs,
             "weight_sync_ms": round(self.weight_sync_ms, 3),
+            "rollout_regens": self.rollout_regens,
+            "learner_restarts": self.learner_restarts,
+            "epoch": self._epoch,
             "worker_versions": list(self._worker_version),
             "newest_ckpt": self._newest_ckpt,
-            "workers": [self.workers[0].stats()],
         }
+        if self._local:
+            out["workers"] = [self.workers[0].stats()]
+        return out
 
     def shutdown(self) -> None:
+        if self._local:
+            self.workers[0].stop()
+            return
+        if self._group_formed:
+            try:
+                self._rt.destroy_collective_group(
+                    self._group_name(), reason="rlhf trainer shutdown")
+            except Exception:  # noqa: BLE001
+                pass
         for w in self.workers:
-            w.stop()
+            try:
+                self._rt.kill(w)
+            except Exception:  # noqa: BLE001
+                pass
+        if self.cfg.remote_learner:
+            try:
+                self._rt.kill(self.learner)
+            except Exception:  # noqa: BLE001
+                pass

@@ -1,5 +1,5 @@
 """LLM rollout workers: GRPO-group generation through the serve engine
-(port of ray_tpu/rl/rollout_llm.py, in-process).
+(port of ray_tpu/rl/rollout_llm.py).
 
 A rollout worker owns a paged-KV `LLMEngine` (serve/llm.py) and generates
 K completions per prompt, a GRPO *group*.  Every member of a group shares
@@ -19,10 +19,18 @@ Trajectories are dicts of numpy arrays with the reference's keys and
 dtypes (int32 tokens, float32 logprobs / mask / rewards), so a batch made
 by either framework feeds the other's learner.
 
-Not ported yet (ROADMAP.md queue 1): the actor half (`recv_weights` and
-the collective group methods, which wait for the runtime seam), the
-rollout metrics, and the `rl.rollout_step` failpoint; the port has no
-metrics registry or failpoints.  Runs on CUDA unless `device="cpu"`.
+The same class runs in the caller's process or as an actor of a runtime
+(`serve/runtime.py`: a `LocalRuntime` or a binding to a cluster), spawned
+with `max_concurrency >= 2`: `recv_weights` rides a second thread while
+`rollout` decodes.  Its runtime calls go through the `runtime` it is
+given: joining and leaving the trainer's weight-broadcast group, the
+packed broadcast (`collective.broadcast_pytree`), resolving pushed refs,
+and the failpoint site `rl.rollout_step` (at rollout entry: a `crash`
+models a rollout actor dying with a group in flight).
+
+Not ported yet (ROADMAP.md queue 1 item 1c): the rollout metrics
+(`ray_tpu/rl/rollout_llm.py:78`); the runtime's hooks are where they will
+attach.  Runs on CUDA unless `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -34,8 +42,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ray_tpu_torch.collective.collective import broadcast_pytree
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.parallel.sharding import tree_map
 from ray_tpu_torch.serve.llm import LLMEngine
+from ray_tpu_torch.serve.runtime import ServeRuntime, resolve_tree
 
 
 def _pow2(n: int, lo: int = 8) -> int:
@@ -70,12 +81,13 @@ def target_token_reward(target: int) -> Callable:
 
 class LLMRolloutWorker:
     """One rollout worker: paged-KV engine + trajectory scoring, in the
-    caller's process."""
+    caller's process or as an actor of `runtime`."""
 
     def __init__(self, model: Any = "debug", *, params: Any = None,
                  seed: int = 0, engine: dict | None = None,
                  reward_fn: Callable | None = None,
-                 name: str = "rollout", device=None):
+                 name: str = "rollout", device=None,
+                 runtime: ServeRuntime | None = None):
         cfg = llama.llama_configs()[model] if isinstance(model, str) \
             else model
         ekw = dict(max_batch=8, max_len=min(cfg.max_seq, 1024),
@@ -84,6 +96,7 @@ class LLMRolloutWorker:
         device = ekw.pop("device", device)
         self.cfg = cfg
         self.name = name
+        self._runtime = runtime or ServeRuntime()
         self.engine = LLMEngine(cfg, params, seed=seed, name=name,
                                 device=device, **ekw)
         self.device = self.engine.device
@@ -96,12 +109,44 @@ class LLMRolloutWorker:
         # Scoring needs no gradients, so no recompute either.
         self._score_cfg = dataclasses.replace(cfg, remat=False)
 
+    # ------------------------------------------------------ collective
+    def init_collective_group(self, world_size: int, rank: int,
+                              backend: str = "object_store",
+                              group_name: str = "default") -> None:
+        """Join the trainer's weight-broadcast group (the
+        create_collective_group contract; the runtime picks the
+        transport, so `backend` is not read)."""
+        self._runtime.init_collective_group(world_size, rank, group_name)
+
+    def deregister_collective_group(self, group_name: str) -> None:
+        """Drop this worker's state for a stale weight-sync epoch (the
+        trainer destroys the group itself)."""
+        self._runtime.deregister_collective_group(group_name)
+
+    def _params_template(self) -> dict:
+        """Shapes and dtypes of the engine's weights as CPU `torch.empty`
+        leaves: no device fetch per sync."""
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                        self.engine.params)
+
+    def recv_weights(self, version: int, group_name: str,
+                     src_rank: int = 0) -> int:
+        """Receive one packed weight broadcast and stage it on the engine;
+        returns the staged version.  Decode keeps running: the engine
+        swaps between decode windows."""
+        tree = broadcast_pytree(self._params_template(), src_rank,
+                                group_name, runtime=self._runtime)
+        return self.engine.update_weights(tree, version)
+
     def update_weights(self, refs, version: int | None = None) -> int:
-        """Stage a param tree on the engine (tensors or numpy); the
-        engine copies it into its resident weights between decode
-        windows.  The caller must not change the tree until
+        """Direct weight push (the no-collective path: local mode, and the
+        bootstrap of a replacement worker): `refs` is the tree (tensors or
+        numpy), a runtime ref to it, or a list of refs to dict shards that
+        merge into it.  The engine copies it into its resident weights
+        between decode windows; the caller must not change the tree until
         `stats()["weight_version"]` shows the swap."""
-        return self.engine.update_weights(refs, version)
+        return self.engine.update_weights(
+            resolve_tree(self._runtime, refs, timeout=300.0), version)
 
     def _score(self, params: dict, toks: np.ndarray) -> np.ndarray:
         with torch.no_grad():
@@ -126,6 +171,7 @@ class LLMRolloutWorker:
         scoring ran), gen_s, rollout_tokens, and the rollout's prefix
         hit/prefill token deltas (the group-sharing proof); score_s is
         the scoring time (the port's addition)."""
+        self._runtime.failpoint("rl.rollout_step")
         if group_size < 1:
             raise ValueError(f"group_size must be >= 1, got {group_size}")
         eng = self.engine

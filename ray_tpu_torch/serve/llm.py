@@ -60,8 +60,9 @@ Kill switches shared with the reference: RAY_TPU_PREFIX_CACHE=0 disables
 prefix matching, RAY_TPU_KV_PREEMPT=0 restores full-span up-front
 allocation, RAY_TPU_RL_WEIGHT_SYNC=0 drops weight updates (read per
 call), RAY_TPU_PREFIX_STORE=0 stops demotion (read per scan).  Not
-ported yet (see ROADMAP.md): the metrics, tracing, memory-ledger and
-failpoint hooks, capturing prefill.
+ported yet: the metrics, tracing, memory-ledger and failpoint hooks
+(ROADMAP.md queue 1 item 1c: they attach to the runtime seam's
+`failpoint` and `span`), capturing prefill.
 
 LLMServer, the serve deployment body, wraps one engine: the request path
 (__call__, stream), the PD pool roles, adapter page-in, the tier-2 prefix
@@ -97,7 +98,7 @@ from ray_tpu_torch.serve.kv_router import (env_on, lora_on, pd_disagg_on,
                                            prefix_store_on)
 from ray_tpu_torch.serve.lora import AdapterLoadError
 from ray_tpu_torch.serve.prefix_store import PrefixStoreClient
-from ray_tpu_torch.serve.runtime import ServeRuntime
+from ray_tpu_torch.serve.runtime import ServeRuntime, resolve_tree
 from ray_tpu_torch.serve.schema import ENGINE_CONFIG_KEYS, ENGINE_ROLES
 
 _M32 = 0xFFFFFFFF
@@ -148,6 +149,14 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 15)
     x = (x * 0x2C1B3C6D) & _M32
     return x ^ (x >> 16)
+
+
+# torch.cuda.graph synchronizes the device and empties the caching
+# allocator as it enters, which invalidates a capture in progress on
+# another thread (two engines of one process capturing their first
+# windows at once: rollout workers as in-process actors), so captures
+# take turns.
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _leaves(tree, path: str = "") -> list[tuple[str, Any]]:
@@ -1037,7 +1046,12 @@ class LLMEngine:
         stream (its result is this window's; it also creates the cuBLAS
         workspaces the capture needs), then capture the same body once.
         The capture runs nothing, so the launches it records are held
-        back (this thread's only) and credited on every replay instead."""
+        back (this thread's only) and credited on every replay instead.
+        One engine of the process captures at a time (_CAPTURE_LOCK)."""
+        with _CAPTURE_LOCK:
+            return self._capture_locked(K)
+
+    def _capture_locked(self, K: int) -> _WindowGraph:
         if self._side_stream is None:
             self._side_stream = torch.cuda.Stream(self.device)
         side = self._side_stream
@@ -1830,8 +1844,8 @@ class LLMServer:
 
     Not ported: the reference's engine metrics, tracing spans,
     memory-ledger tags and failpoints (serve.adapter_load and the spans of
-    the adapter load, shed/restore and KV put and pull); tests inject
-    faults through fakes instead."""
+    the adapter load, shed/restore and KV put and pull; ROADMAP.md queue 1
+    item 1c); tests inject faults through fakes instead."""
 
     # Adapter requests re-page and resubmit this many times in all when a
     # concurrent tenant's load evicts their adapter between the page-in
@@ -2217,28 +2231,6 @@ class LLMServer:
         out["migrated"] = True
         return out
 
-    def _resolve_weights(self, refs):
-        """The reference's forms of a weight push: a tree, one ref, or a
-        list of refs to dict shards that merge into the tree."""
-        rt = self._runtime
-        if rt.is_ref(refs):
-            return rt.get(refs)
-        if (isinstance(refs, (list, tuple)) and refs
-                and all(rt.is_ref(r) for r in refs)):
-            got = [rt.get(r) for r in refs]
-            if len(got) == 1:
-                return got[0]
-            if not all(isinstance(g, dict) for g in got):
-                raise ValueError(
-                    "update_weights: a multi-ref push must resolve to "
-                    "dict shards that merge into the param tree; got "
-                    f"{[type(g).__name__ for g in got]}")
-            tree = {}
-            for g in got:
-                tree.update(g)
-            return tree
-        return refs
-
     def update_weights(self, refs, version: int | None = None) -> int:
         """Replica-side weight push (online RLHF): stage a fresh param
         tree on the engine (decode keeps running; the swap lands between
@@ -2249,7 +2241,7 @@ class LLMServer:
         (or, kill-switched, current) version."""
         tree = refs
         if env_on("RAY_TPU_RL_WEIGHT_SYNC"):
-            tree = self._resolve_weights(refs)
+            tree = resolve_tree(self._runtime, refs)
         v = self.engine.update_weights(tree, version)
         if self._prefix_client is not None:
             try:

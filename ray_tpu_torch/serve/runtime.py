@@ -18,12 +18,87 @@ binding to a real runtime subclasses it and overrides each member.
 tests and single-process runs: `.remote(...)` runs the bound method on a
 worker thread and returns an awaitable, `.options(method_name=...)` binds
 another method, as a serve handle does.
+
+The RLHF actor topology (rl/rlhf.py, rl/rollout_llm.py,
+collective/collective.py) makes the reference's other runtime calls on
+the same object:
+
+- the actor face: `remote(cls)` (an actor class whose
+  `.options(num_cpus=..., max_concurrency=...)` and `.remote(*a, **k)`
+  behave as `ray_tpu.remote(cls)`'s: an actor's `method.remote(...)`
+  returns a ref), `get(ref_or_list, timeout)` and `kill(actor)`;
+- the collective face: `init_collective_group`, `get_rank`,
+  `deregister_collective_group`, `destroy_collective_group` and
+  `broadcast_async` (a waitable with `.wait(timeout)`), as
+  `ray_tpu.collective` has them;
+- two hooks: `failpoint(site)` and `span(name, attrs)`.
+
+The null runtime makes no actors and forms no groups: those calls raise,
+naming `LocalRuntime`; its hooks do nothing.  `LocalRuntime` is the
+runtime of one process, as `LocalHandle` is an in-process deployment
+handle: each actor is built in the caller's process and runs its methods
+on a thread pool of its own, `kill` makes every pending and later call
+raise `ActorDiedError`, and a collective group is an in-process
+rendezvous whose every wait has a deadline.
 """
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import inspect
+import re
+import threading
+import time
+
+NO_CLUSTER = (
+    "no runtime to {what}: ServeRuntime() is a process outside any "
+    "cluster; pass a LocalRuntime (one process) or a binding to a "
+    "cluster")
+
+
+class ActorDiedError(RuntimeError):
+    """A call on an actor that was killed, or died, before it answered."""
+
+    def __reduce__(self):
+        return (type(self), self.args)
+
+
+class CollectiveGroupError(RuntimeError):
+    """A collective wait ended by the group's destruction: the message is
+    the destroyer's reason."""
+
+    def __reduce__(self):
+        return (type(self), self.args)
+
+
+def resolve_tree(runtime, refs, timeout: float | None = None):
+    """The reference's forms of a weight push: a tree, one ref to it, or a
+    list of refs to dict shards that merge into the tree (refs resolve
+    through `runtime`)."""
+    if runtime.is_ref(refs):
+        return runtime.get(refs, timeout=timeout)
+    if (isinstance(refs, (list, tuple)) and refs
+            and all(runtime.is_ref(r) for r in refs)):
+        got = [runtime.get(r, timeout=timeout) for r in refs]
+        if len(got) == 1:
+            return got[0]
+        if not all(isinstance(g, dict) for g in got):
+            raise ValueError(
+                "update_weights: a multi-ref push must resolve to "
+                "dict shards that merge into the param tree; got "
+                f"{[type(g).__name__ for g in got]}")
+        tree = {}
+        for g in got:
+            tree.update(g)
+        return tree
+    return refs
+
+
+def makes_actors(runtime) -> bool:
+    """Whether `runtime` overrides the null runtime's `remote`."""
+    return runtime is not None \
+        and type(runtime).remote is not ServeRuntime.remote
 
 
 class ServeRuntime:
@@ -58,6 +133,61 @@ class ServeRuntime:
         `prefix_store_<verb>` methods return refs for `get`; None when
         there is none."""
         return None
+
+    # ------------------------------------------------------ actor face
+    def remote(self, cls):
+        """An actor class of `cls`: `.options(num_cpus=...,
+        max_concurrency=...)` another one, `.remote(*args, **kwargs)` an
+        actor handle whose `method.remote(...)` returns a ref for
+        `get`."""
+        raise RuntimeError(NO_CLUSTER.format(
+            what=f"make actors of {getattr(cls, '__name__', cls)!r}"))
+
+    def kill(self, actor) -> None:
+        """Kill `actor`: its pending and later calls raise."""
+        raise RuntimeError(NO_CLUSTER.format(what="kill an actor"))
+
+    # ------------------------------------------------- collective face
+    def init_collective_group(self, world_size: int, rank: int,
+                              group_name: str = "default") -> None:
+        """Join group `group_name` as `rank` of `world_size` (called by
+        every member, from its own actor or the driver)."""
+        raise RuntimeError(NO_CLUSTER.format(
+            what=f"form collective group {group_name!r}"))
+
+    def get_rank(self, group_name: str = "default") -> int:
+        """The caller's rank in `group_name`, -1 outside it."""
+        return -1
+
+    def deregister_collective_group(self, group_name: str) -> None:
+        """Drop the caller's own state for `group_name` (an abandoned
+        epoch), leaving the group to the others."""
+        raise RuntimeError(NO_CLUSTER.format(
+            what=f"deregister collective group {group_name!r}"))
+
+    def destroy_collective_group(self, group_name: str,
+                                 reason: str | None = None) -> None:
+        """Tear `group_name` down for every member: parked waiters raise
+        with `reason`."""
+        raise RuntimeError(NO_CLUSTER.format(
+            what=f"destroy collective group {group_name!r}"))
+
+    def broadcast_async(self, payload, src_rank: int,
+                        group_name: str = "default"):
+        """Broadcast `payload` (a numpy array, given by `src_rank` only;
+        None elsewhere).  Returns a waitable whose `.wait(timeout)` gives
+        the source's payload on every rank."""
+        raise RuntimeError(NO_CLUSTER.format(
+            what=f"broadcast over collective group {group_name!r}"))
+
+    # ------------------------------------------------------------ hooks
+    def failpoint(self, site: str) -> None:
+        """Fault-injection site `site` (`rl.rollout_step`,
+        `rl.weight_sync`); an armed site raises or kills its actor."""
+
+    def span(self, name: str, attrs: dict | None = None):
+        """A tracing span over the `with` block."""
+        return contextlib.nullcontext({})
 
 
 class LocalResponse:
@@ -100,3 +230,386 @@ class LocalHandle:
     def close(self) -> None:
         """Stop the thread pool (shared with every `.options` sibling)."""
         self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+# --------------------------------------------------------- LocalRuntime
+class LocalRef:
+    """The result of a LocalRuntime actor call; `LocalRuntime.get`
+    resolves it."""
+
+    __slots__ = ("_fut",)
+
+    def __init__(self, fut: concurrent.futures.Future):
+        self._fut = fut
+
+
+class _Actor:
+    """One in-process actor: its object, thread pool and open calls."""
+
+    def __init__(self, name: str, max_concurrency: int):
+        self.name = name
+        self.instance = None
+        self.pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=max(1, int(max_concurrency)),
+            thread_name_prefix=f"actor-{name}")
+        self.lock = threading.Lock()
+        self.dead: str | None = None
+        self.pending: set = set()
+
+    def settle(self, fut, result=None, exc=None) -> None:
+        with self.lock:
+            self.pending.discard(fut)
+            if fut.done():
+                return
+            if self.dead is not None:
+                exc = ActorDiedError(self.dead)
+            if exc is not None:
+                fut.set_exception(exc)
+            else:
+                fut.set_result(result)
+
+
+class LocalActorHandle:
+    """Handle to a LocalRuntime actor: `handle.method.remote(...)`."""
+
+    def __init__(self, runtime: "LocalRuntime", actor: _Actor):
+        self._runtime = runtime
+        self._actor = actor
+
+    def __getattr__(self, name: str) -> "_LocalMethod":
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return _LocalMethod(self._runtime, self._actor, name)
+
+    def __repr__(self) -> str:
+        return f"LocalActorHandle({self._actor.name})"
+
+
+class _LocalMethod:
+    def __init__(self, runtime, actor, name):
+        self._runtime, self._actor, self._name = runtime, actor, name
+
+    def options(self, **_ignored) -> "_LocalMethod":
+        return self
+
+    def remote(self, *args, **kwargs) -> LocalRef:
+        return self._runtime._call(self._actor, self._name, args, kwargs)
+
+
+class LocalActorClass:
+    """`LocalRuntime.remote(cls)`: `.options(...)` and `.remote(...)`."""
+
+    def __init__(self, runtime: "LocalRuntime", cls, opts: dict):
+        self._runtime, self._cls, self._opts = runtime, cls, opts
+
+    def options(self, **opts) -> "LocalActorClass":
+        """`max_concurrency` sizes the actor's thread pool (1 unless
+        given); the rest (`num_cpus`, placement, names) means nothing in
+        one process and is accepted as ray_tpu accepts it."""
+        return LocalActorClass(self._runtime, self._cls,
+                               {**self._opts, **opts})
+
+    def remote(self, *args, **kwargs) -> LocalActorHandle:
+        """Build the actor in this process, on the caller's thread (a
+        constructor that raises raises here)."""
+        return self._runtime._spawn(self._cls, self._opts, args, kwargs)
+
+
+# The longest any collective wait of a LocalRuntime lasts (the
+# reference's default RAY_TPU_COLLECTIVE_TIMEOUT_S).
+COLLECTIVE_TIMEOUT_S = 120.0
+
+
+class _Group:
+    """An in-process collective rendezvous."""
+
+    def __init__(self, name: str, world_size: int):
+        self.name = name
+        self.world_size = world_size
+        self.cond = threading.Condition()
+        self.ranks: dict = {}          # member -> rank
+        self.seq: dict = {}            # member -> last op's seq
+        self.slots: dict = {}          # seq -> [payload, takers left]
+        self.destroyed: str | None = None
+
+
+class _Received:
+    """Waitable of a broadcast: the source's payload once it is there."""
+
+    _UNSET = object()
+
+    def __init__(self, group: _Group, seq: int, src_rank: int,
+                 payload=_UNSET):
+        self._g, self._seq, self._src = group, seq, src_rank
+        self._out = payload
+
+    def wait(self, timeout: float | None = None):
+        if self._out is not _Received._UNSET:
+            return self._out
+        g = self._g
+        limit = COLLECTIVE_TIMEOUT_S if timeout is None \
+            else min(timeout, COLLECTIVE_TIMEOUT_S)
+        deadline = time.monotonic() + limit
+        with g.cond:
+            while self._seq not in g.slots and g.destroyed is None:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"collective group {g.name!r}: broadcast {self._seq}"
+                        f" from rank {self._src} not received within "
+                        f"{limit:.1f} s")
+                g.cond.wait(left)
+            if g.destroyed is not None:
+                raise CollectiveGroupError(g.destroyed)
+            slot = g.slots[self._seq]
+            slot[1] -= 1
+            if slot[1] <= 0:
+                del g.slots[self._seq]
+            self._out = slot[0]
+        return self._out
+
+
+_FAILPOINT = re.compile(r"^(?:nth:(\d+)\+)?(crash|raise)$")
+
+
+class LocalRuntime(ServeRuntime):
+    """The runtime of one process (see the module docstring).
+
+    Actors: `remote(cls).options(max_concurrency=N).remote(*a, **k)`
+    builds `cls(*a, **k)` here and gives it N threads; a ref argument at
+    the top level of a call resolves before the method runs (as on a
+    cluster).  `kill` makes the actor's pending and later calls raise
+    `ActorDiedError` at once; a call already running finishes on its
+    thread and its result is dropped; the object's `stop()`, where it has
+    one, runs on a thread of its own, in place of the process exit that
+    frees a real actor's resources.
+
+    Collectives: a member is an actor (or the driver: any thread outside
+    an actor); a broadcast's source deposits its payload and returns, the
+    others take it, and every wait ends at its timeout or
+    COLLECTIVE_TIMEOUT_S, whichever is sooner (TimeoutError), or at a
+    destroy (CollectiveGroupError with the destroyer's reason).
+
+    Failpoints: `arm(site, "nth:N+crash" | "nth:N+raise", actor=None)`
+    fires at the site's Nth hit (by `actor` only, if given) and disarms:
+    `crash` kills the actor the site runs in and raises ActorDiedError in
+    it, `raise` raises RuntimeError."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+        self._actors: list[_Actor] = []
+        self._groups: dict[str, _Group] = {}
+        self._armed: dict[str, dict] = {}
+        self._stopping: list[threading.Thread] = []
+
+    # ----------------------------------------------------------- objects
+    def is_ref(self, x) -> bool:
+        return isinstance(x, LocalRef)
+
+    def get(self, ref, timeout: float | None = None):
+        """The value behind a LocalRef, or each of a list of them (one
+        deadline for the whole list); anything else as it is."""
+        if isinstance(ref, (list, tuple)):
+            deadline = None if timeout is None \
+                else time.monotonic() + timeout
+            return [self.get(r, None if deadline is None else max(
+                0.0, deadline - time.monotonic())) for r in ref]
+        if isinstance(ref, LocalRef):
+            return ref._fut.result(timeout)
+        return ref
+
+    # ------------------------------------------------------------ actors
+    def remote(self, cls) -> LocalActorClass:
+        return LocalActorClass(self, cls, {})
+
+    def _spawn(self, cls, opts, args, kwargs) -> LocalActorHandle:
+        actor = _Actor(getattr(cls, "__name__", "actor"),
+                       opts.get("max_concurrency") or 1)
+        prev = getattr(self._tls, "actor", None)
+        self._tls.actor = actor
+        try:
+            actor.instance = cls(*args, **kwargs)
+        except BaseException:
+            actor.pool.shutdown(wait=False)
+            raise
+        finally:
+            self._tls.actor = prev
+        with self._lock:
+            self._actors.append(actor)
+        return LocalActorHandle(self, actor)
+
+    def _resolve_arg(self, x):
+        return self.get(x) if isinstance(x, LocalRef) else x
+
+    def _call(self, actor: _Actor, method: str, args, kwargs) -> LocalRef:
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with actor.lock:
+            if actor.dead is not None:
+                fut.set_exception(ActorDiedError(actor.dead))
+                return LocalRef(fut)
+            actor.pending.add(fut)
+
+        def run():
+            if fut.done():
+                return
+            self._tls.actor = actor
+            try:
+                a = [self._resolve_arg(x) for x in args]
+                k = {n: self._resolve_arg(v) for n, v in kwargs.items()}
+                inst = actor.instance
+                if inst is None:
+                    raise ActorDiedError(actor.dead or actor.name)
+                out = getattr(inst, method)(*a, **k)
+                if inspect.iscoroutine(out):
+                    out = asyncio.run(out)
+            except BaseException as e:  # noqa: BLE001 - to the ref
+                actor.settle(fut, exc=e)
+            else:
+                actor.settle(fut, result=out)
+            finally:
+                self._tls.actor = None
+
+        try:
+            actor.pool.submit(run)
+        except RuntimeError:               # pool shut down by a kill
+            actor.settle(fut, exc=ActorDiedError(actor.dead or actor.name))
+        return LocalRef(fut)
+
+    def kill(self, actor: LocalActorHandle) -> None:
+        self._kill(actor._actor, f"actor {actor._actor.name} was killed")
+
+    def _kill(self, actor: _Actor, reason: str) -> None:
+        with actor.lock:
+            if actor.dead is not None:
+                return
+            actor.dead = reason
+            pending, actor.pending = list(actor.pending), set()
+            inst, actor.instance = actor.instance, None
+            for f in pending:
+                if not f.done():
+                    f.set_exception(ActorDiedError(reason))
+        actor.pool.shutdown(wait=False, cancel_futures=True)
+        with self._lock:
+            if actor in self._actors:
+                self._actors.remove(actor)
+        stop = getattr(inst, "stop", None)
+        if callable(stop):
+            t = threading.Thread(target=stop, daemon=True,
+                                 name=f"stop-{actor.name}")
+            t.start()
+            with self._lock:
+                self._stopping.append(t)
+
+    def shutdown(self, timeout: float = 60.0) -> None:
+        """Kill every live actor, destroy every group, and wait (at most
+        `timeout` seconds) for the killed actors' `stop()`s."""
+        with self._lock:
+            actors, groups = list(self._actors), list(self._groups)
+        for a in actors:
+            self._kill(a, f"actor {a.name}: runtime shut down")
+        for name in groups:
+            self.destroy_collective_group(name, "runtime shut down")
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            stopping, self._stopping = self._stopping, []
+        for t in stopping:
+            t.join(max(0.0, deadline - time.monotonic()))
+
+    # -------------------------------------------------------- failpoints
+    def arm(self, site: str, action: str, actor=None) -> None:
+        m = _FAILPOINT.match(action)
+        if m is None:
+            raise ValueError(f"failpoint action {action!r}: want "
+                             "'[nth:N+]crash' or '[nth:N+]raise'")
+        with self._lock:
+            self._armed[site] = {
+                "nth": int(m.group(1) or 1), "hits": 0, "base": m.group(2),
+                "actor": None if actor is None else actor._actor}
+
+    def failpoint(self, site: str) -> None:
+        if not self._armed:
+            return
+        me = getattr(self._tls, "actor", None)
+        with self._lock:
+            arm = self._armed.get(site)
+            if arm is None or arm["actor"] not in (None, me):
+                return
+            arm["hits"] += 1
+            if arm["hits"] < arm["nth"]:
+                return
+            del self._armed[site]
+        if arm["base"] == "raise" or me is None:
+            raise RuntimeError(f"injected by failpoint {site!r}")
+        reason = f"actor {me.name} crashed at failpoint {site!r}"
+        self._kill(me, reason)
+        raise ActorDiedError(reason)
+
+    # ------------------------------------------------------- collectives
+    def _member(self):
+        return getattr(self._tls, "actor", None)
+
+    def init_collective_group(self, world_size: int, rank: int,
+                              group_name: str = "default") -> None:
+        if not 0 <= rank < world_size:
+            raise ValueError(
+                f"rank {rank} out of range for world {world_size}")
+        with self._lock:
+            g = self._groups.get(group_name)
+            if g is None or g.world_size != world_size:
+                g = self._groups[group_name] = _Group(group_name,
+                                                      world_size)
+        with g.cond:
+            g.ranks[self._member()] = rank
+            g.seq[self._member()] = 0
+
+    def _group(self, group_name: str) -> _Group:
+        g = self._groups.get(group_name)
+        if g is None or self._member() not in g.ranks:
+            raise RuntimeError(
+                f"collective group {group_name!r} not initialized for "
+                "this member; call init_collective_group first")
+        return g
+
+    def get_rank(self, group_name: str = "default") -> int:
+        g = self._groups.get(group_name)
+        return -1 if g is None else g.ranks.get(self._member(), -1)
+
+    def deregister_collective_group(self, group_name: str) -> None:
+        me = self._member()
+        with self._lock:
+            g = self._groups.get(group_name)
+            if g is None:
+                return
+            g.ranks.pop(me, None)
+            g.seq.pop(me, None)
+            if not g.ranks:
+                del self._groups[group_name]
+
+    def destroy_collective_group(self, group_name: str,
+                                 reason: str | None = None) -> None:
+        with self._lock:
+            g = self._groups.pop(group_name, None)
+        if g is None:
+            return
+        with g.cond:
+            g.destroyed = reason or \
+                f"collective group {group_name!r} destroyed"
+            g.slots.clear()
+            g.cond.notify_all()
+
+    def broadcast_async(self, payload, src_rank: int,
+                        group_name: str = "default") -> _Received:
+        g = self._group(group_name)
+        me = self._member()
+        with g.cond:
+            if g.destroyed is not None:
+                raise CollectiveGroupError(g.destroyed)
+            g.seq[me] += 1
+            seq = g.seq[me]
+            if g.ranks[me] != src_rank:
+                return _Received(g, seq, src_rank)
+            if g.world_size > 1:
+                g.slots[seq] = [payload, g.world_size - 1]
+                g.cond.notify_all()
+        return _Received(g, seq, src_rank, payload)

@@ -30,24 +30,26 @@ import numpy as np
 import torch
 
 
-def _flatten(tree, leaves: list):
-    """Leaves in a fixed order (dict keys sorted) and a structure to
-    rebuild from."""
+def flatten(tree, leaves: list):
+    """Append `tree`'s leaves to `leaves` in a fixed order (dict keys
+    sorted, as jax's tree_flatten orders them; None is no leaf) and return
+    a structure to rebuild from.  host_broadcast and
+    collective.broadcast_pytree pack in this order."""
     if isinstance(tree, dict):
-        return {k: _flatten(tree[k], leaves) for k in sorted(tree)}
+        return {k: flatten(tree[k], leaves) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_flatten(x, leaves) for x in tree)
+        return type(tree)(flatten(x, leaves) for x in tree)
     if tree is None:
         return None
     leaves.append(tree)
     return len(leaves) - 1
 
 
-def _unflatten(spec, leaves: list):
+def unflatten(spec, leaves: list):
     if isinstance(spec, dict):
-        return {k: _unflatten(v, leaves) for k, v in spec.items()}
+        return {k: unflatten(v, leaves) for k, v in spec.items()}
     if isinstance(spec, (list, tuple)):
-        return type(spec)(_unflatten(x, leaves) for x in spec)
+        return type(spec)(unflatten(x, leaves) for x in spec)
     return None if spec is None else leaves[spec]
 
 
@@ -64,9 +66,9 @@ def host_broadcast(tree, src_rank: int = 0):
     import torch.distributed as dist
 
     leaves: list = []
-    spec = _flatten(tree, leaves)
+    spec = flatten(tree, leaves)
     if not dist.is_initialized() or dist.get_world_size() <= 1:
-        return _unflatten(spec, [_copy(x) for x in leaves])
+        return unflatten(spec, [_copy(x) for x in leaves])
     comm = (torch.device("cuda", torch.cuda.current_device())
             if dist.get_backend() == "nccl" else torch.device("cpu"))
     tensors = [x.detach() if isinstance(x, torch.Tensor)
@@ -88,4 +90,4 @@ def host_broadcast(tree, src_rank: int = 0):
                 out[i] = part.to(t.device, copy=True)
             else:
                 out[i] = part.cpu().numpy().copy()
-    return _unflatten(spec, out)
+    return unflatten(spec, out)

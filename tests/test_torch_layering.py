@@ -65,6 +65,9 @@ def test_walk_covers_the_package_and_chip_smoke():
                 "ray_tpu_torch/rl/dreamerv3.py",
                 "ray_tpu_torch/train/backend.py",
                 "ray_tpu_torch/train/session.py",
+                "ray_tpu_torch/collective/collective.py",
+                "ray_tpu_torch/rl/rlhf.py",
+                "ray_tpu_torch/rl/rollout_llm.py",
                 "ray_tpu_torch/data/iterator.py",
                 "ray_tpu_torch/api.py",
                 "ray_tpu_torch/parallel/comm.py",

@@ -345,13 +345,19 @@ def test_config_validation(small):
 
 
 def test_actor_topology_not_implemented(small):
+    """The actor topology needs a runtime that makes actors: without one
+    (none, or the null ServeRuntime) the trainer raises ValueError naming
+    LocalRuntime.  A mesh learner still raises, pointing at LearnerGroup
+    (queue 1 item 7)."""
     from ray_tpu_torch.rl.rlhf import GRPOLearner, RLHFTrainer
+    from ray_tpu_torch.serve.runtime import ServeRuntime
 
     for kw in (dict(num_rollout_workers=2),
-               dict(num_rollout_workers=2, remote_learner=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5b"):
+               dict(num_rollout_workers=2, remote_learner=True),
+               dict(num_rollout_workers=1, runtime=ServeRuntime())):
+        with pytest.raises(ValueError, match="LocalRuntime"):
             RLHFTrainer(_port_cfg(small, **kw))
-    with pytest.raises(NotImplementedError, match="5b"):
+    with pytest.raises(NotImplementedError, match="LearnerGroup"):
         GRPOLearner(_port_cfg(small), mesh=object())
 
 

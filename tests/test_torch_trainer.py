@@ -6,8 +6,9 @@ The trainer run boots the ray_tpu runtime once for the module and drives
 the reference's own `DataParallelTrainer` with the port's
 `ProcessGroupBackend` on two CPU train workers: gloo, a `file://` store
 under the test's temporary directory (no port test takes a TCP port), a
-60 s group timeout, and a binding of `ray_tpu.get` (with a timeout on
-every wait) that lives here, as the runtime seam requires.  Each rank
+60 s group timeout, and the seam's binding to the runtime
+(tests/torch_ray_runtime.py, a timeout on every wait), which lives with
+the tests, as the runtime seam requires.  Each rank
 builds its state from its own seed; `host_broadcast` must give every rank
 rank 0's; batches come through `iter_device_batches(device="cpu")` from a
 seeded numpy iterator (no runtime Dataset: its streaming executor is one
@@ -134,23 +135,18 @@ def test_trainer_backend_broadcast_and_feed_match_the_single_device_step(
         rt, tmp_path):
     from ray_tpu.train import FailureConfig, RunConfig, ScalingConfig
     from ray_tpu.train.trainer import DataParallelTrainer
-    from ray_tpu_torch.serve.runtime import ServeRuntime
+    from torch_ray_runtime import RayTpuRuntime
+
     from ray_tpu_torch.train.backend import ProcessGroupBackend
     from ray_tpu_torch.train.step import (create_train_state,
                                           default_optimizer, make_train_step)
-
-    class RuntimeGet(ServeRuntime):
-        """The seam's get, bound to the ray_tpu runtime."""
-
-        def get(self, ref, timeout=None):
-            return rt.get(ref, timeout=timeout)
 
     store = f"file://{tmp_path}/store"
 
     class Backend(ProcessGroupBackend):
         def __init__(self):
             super().__init__(device="cpu", init_method=store,
-                             runtime=RuntimeGet(), timeout_s=60.0)
+                             runtime=RayTpuRuntime(), timeout_s=60.0)
 
     class PortTrainer(DataParallelTrainer):
         _backend_cls = Backend
