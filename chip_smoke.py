@@ -290,6 +290,25 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  launches a step of each flash kernel on wgmma (counted
                  into the kernels line), a traced step's busy share; the
                  group is left at the end.
+  18. rl_algos_f32 -- each of the nine RL algorithms' training loops (PPO,
+                 IMPALA, APPO, DQN, SAC, BC, MARWIL, CQL, multi-agent PPO)
+                 built on a `LocalRuntime` with its learners on CUDA and
+                 with them on the CPU, from the same params (hidden 16,
+                 small batches, f32, TF32 off), one step() each: the
+                 sampled fragments and every learner batch equal bit for
+                 bit (numpy on the host), the counts equal, the learner
+                 metrics and the params within 1e-4; no kernel runs.
+  19. rl_algos_cartpole -- the nine at their reference tests' settings
+                 (CartPole, hidden 64, seed 0), learners on the card, env
+                 runners as `LocalRuntime` actors: PPO up to 12 step()s
+                 must meet tests/test_rl.py's bar (best return >= 60, and
+                 best > 1.2 x first or >= 100), the others 3; per
+                 algorithm mean time_this_iter_s, steps/s, the learner's
+                 ms a step() (around `learner_group.update` with a device
+                 sync), first and best return, and one more step() under
+                 torch.profiler (kernel launches, device busy share as the
+                 union of device intervals over wall time).  The RL loops
+                 launch none of the four kernels.
 
 Phase `kernels` also holds the flash forward and backward at the Mixtral
 layer's shape ([2, 4096, 32, 8, 128], bf16, timed) and at the ViT-B/16
@@ -3653,6 +3672,367 @@ def phase_trainer_350m(card, sharded: dict):
     return launches
 
 
+# --------------------------------------- phases 18-19: the RL algorithms
+RL_ALGORITHMS = ("ppo", "impala", "appo", "dqn", "sac", "bc", "marwil", "cql",
+             "multi_agent")
+RL_CONFIGS = {"ppo": "PPOConfig", "impala": "IMPALAConfig",
+              "appo": "APPOConfig", "dqn": "DQNConfig", "sac": "SACConfig",
+              "bc": "BCConfig", "marwil": "MARWILConfig",
+              "cql": "CQLConfig", "multi_agent": "MultiAgentPPOConfig"}
+RL_OFFLINE = ("bc", "marwil", "cql")
+RL_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def kernel_counts() -> dict:
+    """Launches of all four kernel wrappers (and the flash routes)."""
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    return {**flash_counts(),
+            "paged_decode_attention": paged_decode_attention.launches}
+
+
+def expert_transitions(n_steps: int, seed: int = 3,
+                       explore: float = 0.2) -> dict:
+    """Logged CartPole transitions of the lean-direction expert with a
+    share `explore` of random actions (tests/test_rl_extra.py's
+    `_expert_transitions`; with explore 0, tests/test_rl.py's BC data)."""
+    from ray_tpu_torch.rl.env import CartPole
+
+    rng = np.random.default_rng(seed)
+    env = CartPole(seed=seed)
+    cols = {k: [] for k in ("obs", "actions", "rewards", "next_obs",
+                            "dones")}
+    obs = env.reset()
+    for _ in range(n_steps):
+        if explore and rng.random() < explore:
+            a = int(rng.integers(2))
+        else:
+            a = int(obs[2] + 0.3 * obs[3] > 0)
+        nxt, r, term, trunc = env.step(a)
+        for k, v in zip(cols, (obs.copy(), a, r, nxt.copy(), float(term))):
+            cols[k].append(v)
+        obs = env.reset() if (term or trunc) else nxt
+    return {k: np.array(v, np.int64 if k == "actions" else np.float32)
+            for k, v in cols.items()}
+
+
+def rl_config(algo: str):
+    import importlib
+
+    from ray_tpu_torch.rl import multi_agent  # noqa: F401 - MultiCartPole
+
+    mod = importlib.import_module(f"ray_tpu_torch.rl.{algo}")
+    cfg = getattr(mod, RL_CONFIGS[algo])()
+    return cfg.environment("MultiCartPole" if algo == "multi_agent"
+                           else "CartPole-v1").debugging(seed=SEED)
+
+
+def rl_small_config(algo: str):
+    """tests/test_torch_rl_algorithms.py's settings: hidden 16, small
+    batches, learning_starts reached in the first step, at most two Adam
+    steps a step() (DQN: its fixed four, at lr 5e-5)."""
+    cfg = rl_config(algo)
+    cfg.hidden = 16
+    if algo == "ppo":
+        return cfg.env_runners(num_env_runners=2).training(
+            lr=3e-4, train_batch_size=64, num_sgd_iter=1, minibatch_size=32)
+    if algo in ("impala", "appo"):
+        cfg = cfg.env_runners(num_env_runners=2).training(
+            lr=3e-4, train_batch_size=32)
+        return cfg.training(tau=0.1) if algo == "appo" else cfg
+    if algo == "dqn":
+        return cfg.env_runners(num_env_runners=1).training(
+            lr=5e-5, train_batch_size=64, learning_starts=64,
+            sgd_batch_size=16, target_update_freq=64,
+            epsilon_decay_steps=1000)
+    if algo == "sac":
+        return cfg.env_runners(num_env_runners=1).training(
+            lr=3e-4, train_batch_size=64, learning_starts=64,
+            sgd_batch_size=16, updates_per_step=2, tau=0.1)
+    if algo == "multi_agent":
+        return cfg.env_runners(num_env_runners=1).multi_agent(
+            policies=["p0", "p1"],
+            policy_mapping={"agent_0": "p0", "agent_1": "p1"}).training(
+            lr=3e-4, train_batch_size=32, num_sgd_iter=1, minibatch_size=16)
+    cfg = cfg.offline(offline_data=expert_transitions(64)).training(lr=3e-4)
+    cfg.eval_episodes = 1
+    if algo == "cql":
+        return cfg.training(sgd_batch_size=16, updates_per_step=2, tau=0.1)
+    return cfg.training(num_sgd_iter=1, minibatch_size=32)
+
+
+def rl_groups(algo) -> dict:
+    """{policy: LearnerGroup} (None for a single-policy algorithm)."""
+    return getattr(algo, "learner_groups", None) or \
+        {None: algo.learner_group}
+
+
+def rl_params(algo) -> dict:
+    return algo._params_np if hasattr(algo, "learner_groups") \
+        else {None: algo._params_np}
+
+
+def rl_hand(algo, params: dict) -> None:
+    """Every learner of `algo`, its numpy copy and (DQN) its frozen
+    target params to `params`."""
+    for pid, lg in rl_groups(algo).items():
+        algo.runtime.get([ln.set_params.remote(params[pid])
+                          for ln in lg.learners])
+        fresh = lg.get_params_numpy()
+        if pid is None:
+            algo._params_np = fresh
+        else:
+            algo._params_np[pid] = fresh
+    if hasattr(algo, "_target_params"):
+        algo._target_params = algo._params_np
+
+
+def rl_record(algo, keep: bool = True) -> dict:
+    """Each learner-group update's seconds with a device sync and, with
+    `keep`, copies of the fragments each sample returns and of every
+    batch a learner group updates on."""
+    import copy
+
+    log = {"fragments": [], "batches": [], "update_s": []}
+    if keep and hasattr(algo, "env_runner_group"):
+        sample = algo.env_runner_group.sample
+
+        def rec_sample(*a, **k):
+            out = sample(*a, **k)
+            log["fragments"].append(copy.deepcopy(out))
+            return out
+
+        algo.env_runner_group.sample = rec_sample
+    for lg in rl_groups(algo).values():
+        def rec_update(batch, *a, _u=lg.update, **k):
+            if keep:
+                log["batches"].append(copy.deepcopy(
+                    algo.runtime.get(batch)))
+            t0 = time.perf_counter()
+            out = _u(batch, *a, **k)
+            torch.cuda.synchronize()
+            log["update_s"].append(time.perf_counter() - t0)
+            return out
+
+        lg.update = rec_update
+    return log
+
+
+def same_arrays(got: dict, want: dict) -> bool:
+    return set(got) == set(want) and all(
+        np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
+        and np.array_equal(got[k], want[k]) for k in want)
+
+
+def same_counts(a: dict, b: dict) -> bool:
+    """Equal env steps, episodes and mean return (NaN before any)."""
+    return (a["num_env_steps_sampled_lifetime"]
+            == b["num_env_steps_sampled_lifetime"]
+            and a["env_runners"]["num_episodes"]
+            == b["env_runners"]["num_episodes"]
+            and np.array_equal(a["episode_return_mean"],
+                               b["episode_return_mean"], equal_nan=True))
+
+
+def phase_rl_algos_small():
+    """Each of the nine algorithms' first step() on a LocalRuntime with
+    its learners on CUDA, against the same algorithm with its learners on
+    the CPU, f32 (TF32 off), from the same initial params (the CPU
+    build's, target nets drifted off the online ones as in the tests):
+    the fragments and every learner batch equal bit for bit (numpy on the
+    host), the counts and mean return equal, the learner metrics and the
+    params after the step within 1e-4; no kernel of the port runs."""
+    from ray_tpu_torch.parallel.sharding import tree_map
+    from ray_tpu_torch.serve.runtime import LocalRuntime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rt = LocalRuntime()
+    rows, bad = {}, []
+    zero_serve_counts()
+    try:
+        for name in RL_ALGORITHMS:
+            algos = {d: rl_small_config(name).build(runtime=rt, device=d)
+                     for d in ("cuda", "cpu")}
+            rng = np.random.default_rng(SEED + 99)
+            start = {pid: {k: tree_map(lambda a: (a + 0.05 * rng.normal(
+                         size=a.shape)).astype(np.float32), v)
+                          if k.endswith("_t") else v for k, v in p.items()}
+                     for pid, p in rl_params(algos["cpu"]).items()}
+            logs, res = {}, {}
+            for d, algo in algos.items():
+                rl_hand(algo, start)
+                logs[d] = rl_record(algo)
+                res[d] = algo.step()
+            g, c = logs["cuda"], logs["cpu"]
+            frags_equal = len(g["fragments"]) == len(c["fragments"]) and \
+                all(len(a) == len(b) and all(map(same_arrays, a, b))
+                    for a, b in zip(g["fragments"], c["fragments"]))
+            batches_equal = len(g["batches"]) == len(c["batches"]) > 0 \
+                and all(map(same_arrays, g["batches"], c["batches"]))
+            keys = sorted((k for k in res["cpu"] if k.startswith("learner/")),
+                          key=lambda k: not k.endswith("loss"))
+            pg = dict(named_leaves(rl_params(algos["cuda"])))
+            pc = dict(named_leaves(rl_params(algos["cpu"])))
+            row = {
+                "updates": len(c["batches"]),
+                "fragments_bit_equal": frags_equal,
+                "batches_bit_equal": batches_equal,
+                "counts_equal": same_counts(res["cuda"], res["cpu"]),
+                "metrics_max_abs_diff": max(
+                    abs(res["cuda"][k] - res["cpu"][k]) for k in keys),
+                "params_max_abs_diff": max(
+                    float(np.abs(pg[k] - v).max()) for k, v in pc.items()),
+                "metrics_ok": bool(np.allclose(
+                    [res["cuda"][k] for k in keys],
+                    [res["cpu"][k] for k in keys], **RL_TOL)),
+                "params_ok": set(pg) == set(pc) and all(
+                    np.allclose(pg[k], v, **RL_TOL) for k, v in pc.items()),
+                "loss_cuda": res["cuda"][keys[0]], "loss_key": keys[0],
+                "loss_cpu": res["cpu"][keys[0]]}
+            rows[name] = row
+            if not all(row[k] for k in ("fragments_bit_equal",
+                                        "batches_bit_equal", "counts_equal",
+                                        "metrics_ok", "params_ok")):
+                bad.append(name)
+            for algo in algos.values():
+                algo.cleanup()
+    finally:
+        rt.shutdown()
+    launches = kernel_counts()
+    emit({"phase": "rl_algos_f32", "tol": RL_TOL["atol"],
+          "tf32": torch.backends.cuda.matmul.allow_tf32, "hidden": 16,
+          "kernel_launches": launches, "algorithms": rows})
+    if bad or any(launches.values()):
+        raise AssertionError(f"rl_algos_f32: {bad} differ, or a kernel "
+                             f"ran: {launches}")
+
+
+def rl_cartpole_configs() -> dict:
+    """Each algorithm at its reference test's settings (tests/test_rl.py,
+    tests/test_rl_extra.py): CartPole, hidden 64, seed 0; (config,
+    step()s)."""
+    c = rl_config
+    bc = c("bc").training(lr=2e-3, num_sgd_iter=8, minibatch_size=64) \
+        .offline(offline_data={k: v for k, v in expert_transitions(
+            600, explore=0.0).items() if k in ("obs", "actions")})
+    return {
+        "ppo": (c("ppo").env_runners(num_env_runners=2).training(
+            lr=1e-3, train_batch_size=1024, num_sgd_iter=6,
+            minibatch_size=256, entropy_coeff=0.01), 12),
+        "impala": (c("impala").env_runners(num_env_runners=2).training(
+            lr=2e-3, train_batch_size=512, entropy_coeff=0.01), 3),
+        "appo": (c("appo").env_runners(num_env_runners=2).training(
+            lr=2e-3, train_batch_size=512, entropy_coeff=0.01,
+            clip_param=0.4, kl_coeff=0.2, tau=0.05), 3),
+        "dqn": (c("dqn").env_runners(num_env_runners=1).training(
+            train_batch_size=128, learning_starts=128, sgd_batch_size=32),
+            3),
+        "sac": (c("sac").env_runners(num_env_runners=1).training(
+            train_batch_size=128, learning_starts=128, sgd_batch_size=32,
+            updates_per_step=2), 3),
+        "bc": (bc, 3),
+        "marwil": (c("marwil").training(
+            lr=2e-3, beta=1.0, num_sgd_iter=8, minibatch_size=256)
+            .offline(offline_data=expert_transitions(2000)), 3),
+        "cql": (c("cql").training(
+            lr=2e-3, sgd_batch_size=128, cql_alpha=0.5, updates_per_step=24)
+            .offline(offline_data=expert_transitions(2000)), 3),
+        "multi_agent": (c("multi_agent").env_runners(num_env_runners=2)
+                        .training(lr=3e-3, train_batch_size=512,
+                                  num_sgd_iter=6, minibatch_size=128), 3),
+    }
+
+
+def phase_rl_algos_cartpole(card):
+    """The nine algorithms at their reference tests' settings, learners
+    on the card, env runners as LocalRuntime actors (numpy on the host).
+    PPO runs up to 12 step()s and must meet tests/test_rl.py's bar (best
+    return >= 60, and best > 1.2 x first or best >= 100); the others run
+    3.  Per algorithm: mean time_this_iter_s, steps/s (env steps; offline
+    rows for BC, MARWIL and CQL), the learner's ms a step() timed around
+    `learner_group.update` with a device sync, first and best return,
+    then one more step() under torch.profiler: its kernel launches and
+    device busy share (the union of the device intervals over the step's
+    wall time).  No kernel of the port may run."""
+    from ray_tpu_torch.serve.runtime import LocalRuntime
+    from ray_tpu_torch.tools.profile_serve import kernel_groups
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    rt = LocalRuntime()
+    rows = {}
+    zero_serve_counts()
+    try:
+        for name, (cfg, n_steps) in rl_cartpole_configs().items():
+            algo = cfg.build(runtime=rt, device="cuda")
+            log = rl_record(algo, keep=False)
+            iters, learner_ms, rets, first, best = [], [], [], None, -1.0
+            for _ in range(n_steps):
+                n_upd = len(log["update_s"])
+                res = algo.step()
+                iters.append(res["time_this_iter_s"])
+                learner_ms.append(1e3 * sum(log["update_s"][n_upd:]))
+                ret = res["episode_return_mean"]
+                rets.append(ret)
+                if ret == ret:
+                    first = ret if first is None else first
+                    best = max(best, ret)
+                if name == "ppo" and best >= 120.0:
+                    break
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                algo.step()
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t0) * 1e3
+            _, groups = kernel_groups(prof)
+            n_dev = sum(n for _, n in groups.values())
+            n_copy = sum(1 for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and e.name.startswith(("Memcpy", "Memset")))
+            steps = res["num_env_steps_sampled_lifetime"]
+            metrics = {k: v for k, v in res.items()
+                       if k.startswith("learner/")}
+            rows[name] = {
+                "steps": len(iters), "returns": rets, "return_first": first,
+                "return_best": best if first is not None else None,
+                "iter_s": iters, "iter_s_mean": float(np.mean(iters)),
+                "steps_counted": "offline rows" if name in RL_OFFLINE
+                else "env steps",
+                "steps_per_s": steps / sum(iters),
+                "learner_ms_per_step": float(np.mean(learner_ms)),
+                "learner_share": float(np.sum(learner_ms)
+                                       / (1e3 * np.sum(iters))),
+                "traced_step_ms": traced_ms,
+                "traced_device_ms": union_ms(prof),
+                "traced_busy_share": union_ms(prof) / traced_ms,
+                "traced_kernel_launches": n_dev - n_copy,
+                "traced_copies": n_copy,
+                "finite": all(v == v and abs(v) != float("inf")
+                              for v in metrics.values())}
+            algo.cleanup()
+            emit({"phase": "rl_algos_cartpole", "algorithm": name,
+                  "card": card, **rows[name]})
+    finally:
+        rt.shutdown()
+    launches = kernel_counts()
+    ppo = rows["ppo"]
+    first, best = ppo["return_first"], ppo["return_best"]
+    passed = first is not None and best >= 60.0 and (
+        best > 1.2 * first or best >= 100.0)
+    emit({"phase": "rl_algos_cartpole", "card": card,
+          "ppo_bar_met": passed, "kernel_launches": launches,
+          "iter_s_mean": {k: r["iter_s_mean"] for k, r in rows.items()},
+          "learner_ms_per_step": {k: r["learner_ms_per_step"]
+                                  for k, r in rows.items()},
+          "busy_share": {k: r["traced_busy_share"] for k, r in rows.items()}})
+    broken = [k for k, r in rows.items() if not r["finite"]]
+    if not passed or broken or any(launches.values()):
+        raise AssertionError(f"rl_algos_cartpole: PPO bar met {passed} "
+                             f"(first {first}, best {best}); non-finite "
+                             f"metrics in {broken}; kernels {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3724,6 +4104,8 @@ def main() -> int:
     phase_dreamer_small()
     phase_dreamer_cartpole(card)
     trainer = phase_trainer_350m(card, sharded)
+    phase_rl_algos_small()
+    phase_rl_algos_cartpole(card)
 
     def entry(name, kernel, src, replaces, launches, row, part=None,
               errs=()):

@@ -1,40 +1,61 @@
-"""The algorithms' common base and config builder (port of
-ray_tpu/rl/algorithm.py `AlgorithmConfig` and the in-process parts of
+"""The RL training loop: the algorithms' common base and config builder
+(port of ray_tpu/rl/algorithm.py `AlgorithmConfig`, `coerce_offline` and
 `Algorithm`, with the plain-Python `Trainable` surface of
 ray_tpu/tune/trainable.py it inherits).
 
 `AlgorithmConfig` is a copy of the reference's builder: `environment`,
 `env_runners`, `training`, `learners`, `debugging`, `to_dict`, `copy`,
-`build`.  `Algorithm(config)` runs `setup(config)`; `step()` runs one
-`training_step()` and returns the reference's result layout
+`build`.  `build(**kwargs)` passes the port's two constructor arguments:
+
+  - `runtime` (`serve/runtime.py`): a `LocalRuntime` (one process) or a
+    binding to a cluster; every `ray_tpu.remote/put/get/kill` call of the
+    reference goes through it.  The null runtime (None) makes no actors,
+    so `setup` raises a ValueError naming LocalRuntime;
+  - `device`: the learners' device, cuda unless the caller passes "cpu".
+    Each learner actor resolves it and raises where it cannot get it;
+    `setup` surfaces that error.  The env runners are numpy on the host.
+
+`Algorithm(config, runtime=..., device=...)` runs `setup(config)`: an
+`EnvRunnerGroup` and a `LearnerGroup` on the runtime, the env->learner
+connector pipeline, and the learners' first params as numpy.  `step()`
+runs one `training_step()` and returns the reference's result layout
 (`env_runners/episode_return_mean`, `num_episodes`,
-`num_env_steps_sampled_lifetime`, `time_this_iter_s`, `learner/<metric>`),
-and `train()` adds Tune's `training_iteration`, `time_total_s` and
+`num_env_steps_sampled_lifetime`, `time_this_iter_s`, `learner/<metric>`);
+`train()` adds Tune's `training_iteration`, `time_total_s` and
 `trial_id` as `Trainable.train` does.
 
-An algorithm whose whole loop runs in process (DreamerV3: in-process envs,
-no EnvRunnerGroup, no LearnerGroup) overrides `setup` and
-`training_step`.  The other eight carry their static `loss_builder(config)`
-and the `params_builder` / `post_update_builder` defaults that the
-reference's `setup` puts into the learner's config (`learner_config`
-applies them); their driver (env runners, replay, LearnerGroup actors,
-connectors, checkpoints) needs the runtime and is not ported yet, so
-building one raises.  Tune's checkpoint hooks (`save`, `restore`) are not
-ported: no in-process algorithm defines a checkpoint.
+`save_checkpoint` writes the reference's layout, `algorithm_state.pkl`
+holding {"learner": {"params", "opt_state"}, "timesteps"} with numpy
+leaves only, so the reference's `load_checkpoint` restores it.  The
+reverse does not hold: the reference pickles optax state objects.  Tune's
+`save` / `restore` and `Tuner(PPO, ...)` are not ported: the port has no
+Tune.
+
+DreamerV3's whole loop runs in process: it overrides `setup` and
+`training_step` and makes no actors.
 """
 from __future__ import annotations
 
 import copy
+import os
+import pickle
 import time
 from typing import Any
 
 import numpy as np
 
-DRIVER_HALF = (
-    "the Algorithm driver (training_step, env runners, replay, "
-    "LearnerGroup actors) is not ported yet: ROADMAP.md queue 1 item 7, "
-    "driver half; use rl.learner.Learner(Algo.learner_config(config), "
-    "Algo.loss_builder)")
+from ray_tpu_torch.rl.connectors import (ConcatFragments, ConnectorCtx,
+                                         ConnectorPipelineV2,
+                                         RecordEpisodeMetrics)
+from ray_tpu_torch.rl.env import make_env
+from ray_tpu_torch.rl.env_runner import EnvRunnerGroup
+from ray_tpu_torch.rl.learner import LearnerGroup
+from ray_tpu_torch.serve.runtime import makes_actors
+
+NO_ACTORS = (
+    "{who} runs its env runners and learners as actors: pass "
+    "build(runtime=...) a LocalRuntime (serve/runtime.py; one process) or "
+    "a binding to a cluster")
 
 
 class AlgorithmConfig:
@@ -109,7 +130,7 @@ class AlgorithmConfig:
 
     def build(self, **kwargs) -> "Algorithm":
         """ray: config.build_algo(); `kwargs` go to the algorithm's
-        constructor (the port's `device`)."""
+        constructor (the port's `runtime` and `device`)."""
         if self.algo_class is None:
             raise ValueError("config has no algo_class bound")
         return self.algo_class(config=self.to_dict(), **kwargs)
@@ -117,16 +138,29 @@ class AlgorithmConfig:
     build_algo = build
 
 
+def coerce_offline(data, keys: tuple) -> dict:
+    """Offline data -> numpy column dict (anything with `to_numpy()`, such
+    as a dataset, or a plain dict; shared by BC and CQL)."""
+    if hasattr(data, "to_numpy"):
+        data = data.to_numpy()
+    dtypes = {"actions": np.int64}
+    return {k: np.asarray(data[k], dtypes.get(k, np.float32))
+            for k in keys}
+
+
 class Algorithm:
-    """Base RL algorithm: subclasses define setup() and training_step()
-    (ray: algorithm.py:898 step / :1674 training_step)."""
+    """Base RL algorithm; subclasses define loss_builder() and
+    training_step() (ray: algorithm.py:898 step / :1674 training_step)."""
 
     _default_config: AlgorithmConfig | None = None
     params_builder = None
     post_update_builder = None
 
-    def __init__(self, config: dict | None = None):
+    def __init__(self, config: dict | None = None, runtime=None,
+                 device=None):
         self.config = config or {}
+        self.runtime = runtime
+        self.device = device
         self._iteration = 0
         self._start = time.time()
         self._timesteps = 0
@@ -140,14 +174,41 @@ class Algorithm:
         return cfg
 
     # -- Trainable hooks ----------------------------------------------------
+    def _require_actors(self) -> None:
+        if not makes_actors(self.runtime):
+            raise ValueError(NO_ACTORS.format(who=type(self).__name__))
+
     def setup(self, config: dict) -> None:
-        raise NotImplementedError(f"{type(self).__name__}: {DRIVER_HALF}")
+        self._require_actors()
+        defaults = type(self).get_default_config().to_dict()
+        defaults.update(config or {})
+        self.cfg = defaults
+        probe = make_env(self.cfg["env"], seed=0)
+        self.obs_dim = probe.obs_dim
+        self.n_actions = probe.n_actions
+        self.env_runner_group = EnvRunnerGroup(
+            self.cfg["env"], num_env_runners=self.cfg["num_env_runners"],
+            gamma=self.cfg["gamma"],
+            gae_lambda=self.cfg.get("gae_lambda", 0.95),
+            runtime=self.runtime)
+        learner_cfg = type(self).learner_config(
+            dict(self.cfg, obs_dim=self.obs_dim, n_actions=self.n_actions))
+        self.learner_group = LearnerGroup(
+            learner_cfg, type(self).loss_builder,
+            num_learners=self.cfg["num_learners"],
+            num_tpus_per_learner=self.cfg["num_tpus_per_learner"],
+            runtime=self.runtime, device=self.device)
+        # Learner 0's params; a learner that could not build (no such
+        # device) raises here.
+        self._params_np = self.learner_group.get_params_numpy()
+        # Env->learner connector pipeline (ray: connector_v2.py:29);
+        # subclasses override build_env_to_learner_pipeline() to change
+        # the batch layout (e.g. V-trace [B,T] stacking).
+        self.env_to_learner = self.build_env_to_learner_pipeline()
 
-    def training_step(self) -> dict:
-        raise NotImplementedError
-
-    def cleanup(self) -> None:
-        pass
+    def build_env_to_learner_pipeline(self):
+        return ConnectorPipelineV2(RecordEpisodeMetrics(),
+                                   ConcatFragments())
 
     def step(self) -> dict:
         t0 = time.perf_counter()
@@ -166,6 +227,53 @@ class Algorithm:
         result["episode_return_mean"] = \
             result["env_runners"]["episode_return_mean"]
         return result
+
+    def training_step(self) -> dict:
+        raise NotImplementedError
+
+    def _greedy_eval(self, want: int, fragment: int = 200) -> None:
+        """Greedy (argmax) eval rollouts until `want` episodes complete:
+        the offline algorithms' metric source (BC/CQL; no training data
+        comes from these)."""
+        done = 0
+        for _ in range(max(1, want) * 4):
+            if done >= want:
+                break
+            frags = self.env_runner_group.sample(
+                self._params_np, fragment, epsilon=0.0)
+            for b in frags:
+                rets = b["episode_returns"].tolist()
+                done += len(rets)
+                self._episode_returns.extend(rets)
+
+    def _collect(self, epsilon: float | None = None,
+                 with_gae: bool = True) -> dict:
+        per = max(1, self.cfg["train_batch_size"]
+                  // self.cfg["num_env_runners"])
+        batches = self.env_runner_group.sample(
+            self._params_np, per, epsilon=epsilon, with_gae=with_gae)
+        return self.env_to_learner(batches, ConnectorCtx(self))
+
+    def save_checkpoint(self, checkpoint_dir: str) -> None:
+        state = self.learner_group.get_state()
+        with open(os.path.join(checkpoint_dir, "algorithm_state.pkl"),
+                  "wb") as f:
+            pickle.dump({"learner": state, "timesteps": self._timesteps},
+                        f)
+
+    def load_checkpoint(self, checkpoint_dir: str) -> None:
+        with open(os.path.join(checkpoint_dir, "algorithm_state.pkl"),
+                  "rb") as f:
+            state = pickle.load(f)
+        for ln in self.learner_group.learners:
+            self.runtime.get(
+                ln.set_params.remote(state["learner"]["params"]))
+        self._params_np = state["learner"]["params"]
+        self._timesteps = state["timesteps"]
+
+    def cleanup(self) -> None:
+        self.env_runner_group.stop()
+        self.learner_group.stop()
 
     # -- controller API (ray_tpu/tune/trainable.py Trainable) ---------------
     def train(self) -> dict:

@@ -1,17 +1,38 @@
-"""APPO: asynchronous PPO on the IMPALA trunk, learner side (port of
-ray_tpu/rl/appo.py `appo_params_init`, `appo_post_update`,
-`APPO.loss_builder`): the clipped PPO surrogate on V-trace advantages,
-plus a KL term against a polyak-synced target policy.  As in the
-reference, no stop-gradient stands on the target policy inside the KL, so
-`pi_t` takes that term's gradient (and Adam steps it) before the polyak
-sync.  The algorithm's driver waits for the runtime (rl/algorithm.py)."""
+"""APPO: asynchronous PPO on the IMPALA trunk (port of ray_tpu/rl/appo.py
+`APPOConfig`, `appo_params_init`, `appo_post_update`, `APPO`): the
+clipped PPO surrogate on V-trace advantages, plus a KL term against a
+polyak-synced target policy.  As in the reference, no stop-gradient
+stands on the target policy inside the KL, so `pi_t` takes that term's
+gradient (and Adam steps it) before the polyak sync.  The training loop
+is IMPALA's; `setup` puts the target-net builders into the learner config
+(`Algorithm.learner_config`)."""
 from __future__ import annotations
 
 import torch
 
 from ray_tpu_torch.rl import models
-from ray_tpu_torch.rl.impala import IMPALA, _trunk, vtrace_config, \
-    vtrace_returns
+from ray_tpu_torch.rl.impala import IMPALA, IMPALAConfig, _trunk, \
+    vtrace_config, vtrace_returns
+
+
+class APPOConfig(IMPALAConfig):
+    def __init__(self):
+        super().__init__()
+        self.clip_param = 0.4            # rllib appo.py default
+        self.use_kl_loss = True
+        self.kl_coeff = 0.2
+        self.tau = 0.05                  # polyak rate of the target net
+        self.num_sgd_iter = 1
+
+    def training(self, *, clip_param=None, use_kl_loss=None,
+                 kl_coeff=None, tau=None, **kw) -> "APPOConfig":
+        for name, v in [("clip_param", clip_param),
+                        ("use_kl_loss", use_kl_loss),
+                        ("kl_coeff", kl_coeff), ("tau", tau)]:
+            if v is not None:
+                setattr(self, name, v)
+        super().training(**kw)
+        return self
 
 
 def appo_params_init(generator, obs_dim: int, n_actions: int,
@@ -78,3 +99,7 @@ class APPO(IMPALA):
                            "entropy": entropy, "mean_kl": kl,
                            "mean_rho": rhos.mean()}
         return loss_fn
+
+
+APPO._default_config = APPOConfig()
+APPOConfig.algo_class = APPO

@@ -288,11 +288,13 @@ def _step(opt: torch.optim.Optimizer, leaves: list, grads) -> None:
 
 class DreamerV3(Algorithm):
     """Compact DreamerV3 (see the module docstring), in process on
-    `device` (cuda unless the caller passes "cpu")."""
+    `device` (cuda unless the caller passes "cpu"); it makes no actors,
+    so a `runtime` is accepted and unused."""
 
-    def __init__(self, config: dict | None = None, device=None):
-        self.device = resolve_device(device, "DreamerV3")
-        super().__init__(config)
+    def __init__(self, config: dict | None = None, runtime=None,
+                 device=None):
+        super().__init__(config, runtime=runtime,
+                         device=resolve_device(device, "DreamerV3"))
 
     def setup(self, config: dict) -> None:
         defaults = type(self).get_default_config().to_dict()
@@ -464,6 +466,9 @@ class DreamerV3(Algorithm):
         """Copy a tree (numpy or tensor leaves, the algorithm's keys and
         shapes) into the algorithm's tensors; the Adam moments stay."""
         copy_params(self.params, params)
+
+    def cleanup(self) -> None:
+        pass
 
 
 DreamerV3._default_config = DreamerV3Config()

@@ -1,15 +1,44 @@
-"""IMPALA: the importance-weighted actor-learner with V-trace, learner
-side (port of ray_tpu/rl/impala.py `vtrace_returns`,
-`IMPALA.loss_builder`).  The reference's V-trace recursion is a lax.scan
-over time; here it is a loop over the T steps of a [B, T] batch, batched
-over fragments.  The algorithm's driver waits for the runtime
-(rl/algorithm.py)."""
+"""IMPALA: the importance-weighted actor-learner with V-trace (port of
+ray_tpu/rl/impala.py `IMPALAConfig`, `vtrace_returns`, `IMPALA`).  The
+reference's V-trace recursion is a lax.scan over time; here it is a loop
+over the T steps of a [B, T] batch, batched over fragments.  The env
+runners' fragments reach the learner stacked, one row per fragment
+(`StackFragments`), and the behaviour log-probs shipped with each drive
+the importance ratios."""
 from __future__ import annotations
 
 import torch
 
 from ray_tpu_torch.rl import models
-from ray_tpu_torch.rl.algorithm import Algorithm
+from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rl.connectors import (ConnectorPipelineV2,
+                                         RecordEpisodeMetrics,
+                                         StackFragments)
+
+
+class IMPALAConfig(AlgorithmConfig):
+    def __init__(self):
+        super().__init__()
+        self.lr = 5e-4
+        self.vf_loss_coeff = 0.5
+        self.entropy_coeff = 0.01
+        self.vtrace_clip_rho = 1.0       # rho-bar (value-fit truncation)
+        self.vtrace_clip_pg_rho = 1.0    # rho-bar for the policy gradient
+        self.vtrace_lambda = 1.0
+        self.num_sgd_iter = 1
+
+    def training(self, *, vf_loss_coeff=None, entropy_coeff=None,
+                 vtrace_clip_rho=None, vtrace_clip_pg_rho=None,
+                 vtrace_lambda=None, **kw) -> "IMPALAConfig":
+        for name, v in [("vf_loss_coeff", vf_loss_coeff),
+                        ("entropy_coeff", entropy_coeff),
+                        ("vtrace_clip_rho", vtrace_clip_rho),
+                        ("vtrace_clip_pg_rho", vtrace_clip_pg_rho),
+                        ("vtrace_lambda", vtrace_lambda)]:
+            if v is not None:
+                setattr(self, name, v)
+        super().training(**kw)
+        return self
 
 
 def vtrace_returns(batch, values, v_next, rhos, gamma, rho_bar, pg_rho_bar,
@@ -93,3 +122,19 @@ class IMPALA(Algorithm):
             return total, {"policy_loss": pi_loss, "vf_loss": vf_loss,
                            "entropy": entropy, "mean_rho": rhos.mean()}
         return loss_fn
+
+    def build_env_to_learner_pipeline(self):
+        # V-trace wants the [B,T] fragment layout, not flattened rows.
+        return ConnectorPipelineV2(RecordEpisodeMetrics(),
+                                   StackFragments())
+
+    def training_step(self) -> dict:
+        batch = self._collect(with_gae=False)
+        metrics = self.learner_group.update(
+            batch, num_sgd_iter=self.cfg.get("num_sgd_iter", 1))
+        self._params_np = self.learner_group.get_params_numpy()
+        return metrics
+
+
+IMPALA._default_config = IMPALAConfig()
+IMPALAConfig.algo_class = IMPALA

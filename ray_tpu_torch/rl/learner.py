@@ -24,8 +24,11 @@ Differences from the reference: `get_state()["opt_state"]` is torch's
 Adam state laid out as trees, {"mu", "nu", "count"}, not optax's chain
 state; `set_params` copies into the learner's own tensors in place (the
 optimizer keeps its moments, as the reference keeps its opt_state).
-`LearnerGroup`, the learners as runtime actors, comes with the
-algorithms' driver half (ROADMAP.md queue 1 item 7).
+
+`LearnerGroup` holds one or more `Learner`s as actors of a runtime
+(`serve/runtime.py`: a `LocalRuntime`, or a binding to a cluster), each on
+the algorithm's device; learner 0 is authoritative and the others mirror
+it after every update.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.convert import as_tensor
 from ray_tpu_torch.parallel.sharding import tree_map
 from ray_tpu_torch.rl import models
+from ray_tpu_torch.serve.runtime import ServeRuntime
 from ray_tpu_torch.train.step import param_leaves
 
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8)     # optax.adam's defaults
@@ -156,3 +160,50 @@ class Learner:
                 "opt_state": {"mu": moment("exp_avg"),
                               "nu": moment("exp_avg_sq"),
                               "count": int(first.get("step", 0))}}
+
+
+class LearnerGroup:
+    """One or more Learner actors of `runtime` (ray: learner_group.py:83),
+    each `Learner(config, loss_builder, device=device)`.  Learner 0 is
+    authoritative: with num_learners > 1 the others run the same update
+    and then take learner 0's params (data-parallel learning would shard
+    the batch over a mesh inside ONE learner instead).  The null runtime
+    makes no actors: building a group on it raises, naming LocalRuntime;
+    a learner that cannot get its device raises, and nothing falls back
+    to the CPU."""
+
+    def __init__(self, config: dict, loss_builder: Callable,
+                 num_learners: int = 1, num_tpus_per_learner: float = 0,
+                 runtime=None, device=None):
+        self.runtime = runtime or ServeRuntime()
+        cls = self.runtime.remote(Learner)
+        opts = {"num_cpus": 1}
+        if num_tpus_per_learner:
+            opts["num_tpus"] = num_tpus_per_learner
+        self.learners = [cls.options(**opts).remote(config, loss_builder,
+                                                    device=device)
+                         for _ in range(max(1, num_learners))]
+
+    def update(self, batch, **kw) -> dict:
+        """`batch` (a dict of numpy columns, or the runtime's ref to one)
+        through every learner's `update`; learner 0's metrics."""
+        rt = self.runtime
+        metrics = rt.get([ln.update.remote(batch, **kw)
+                          for ln in self.learners])
+        if len(self.learners) > 1:
+            sync = self.learners[0].get_params_numpy.remote()
+            rt.get([ln.set_params.remote(sync) for ln in self.learners[1:]])
+        return metrics[0]
+
+    def get_params_numpy(self) -> dict:
+        return self.runtime.get(self.learners[0].get_params_numpy.remote())
+
+    def get_state(self) -> dict:
+        return self.runtime.get(self.learners[0].get_state.remote())
+
+    def stop(self) -> None:
+        for ln in self.learners:
+            try:
+                self.runtime.kill(ln)
+            except Exception:  # noqa: BLE001
+                pass

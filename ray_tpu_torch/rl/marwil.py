@@ -1,14 +1,32 @@
-"""MARWIL: advantage re-weighted imitation from offline data, learner
-side (port of ray_tpu/rl/marwil.py `discounted_returns`,
-`MARWIL.loss_builder`).  beta 0 reduces it to BC.  The driver waits for
-the runtime (rl/algorithm.py)."""
+"""MARWIL: advantage re-weighted imitation from offline data (port of
+ray_tpu/rl/marwil.py `MARWILConfig`, `discounted_returns`, `MARWIL`).
+beta 0 reduces it to BC.  The offline batch needs (obs, actions) and
+either "returns" or (rewards, dones), from which `setup` derives the
+discounted returns-to-go; the training loop is BC's."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.rl import models
-from ray_tpu_torch.rl.bc import BC, nll_and_accuracy
+from ray_tpu_torch.rl.bc import BC, BCConfig, nll_and_accuracy
+
+
+class MARWILConfig(BCConfig):
+    def __init__(self):
+        super().__init__()
+        self.beta = 1.0             # 0 => plain BC
+        self.vf_coeff = 1.0
+        self.w_clip = 20.0          # cap on the exp advantage weight
+
+    def training(self, *, beta=None, vf_coeff=None, w_clip=None,
+                 **kw) -> "MARWILConfig":
+        for name, v in [("beta", beta), ("vf_coeff", vf_coeff),
+                        ("w_clip", w_clip)]:
+            if v is not None:
+                setattr(self, name, v)
+        super().training(**kw)
+        return self
 
 
 def discounted_returns(rewards: np.ndarray, dones: np.ndarray,
@@ -48,3 +66,21 @@ class MARWIL(BC):
                            "mean_weight": w.mean(),
                            "action_accuracy": acc}
         return loss_fn
+
+    def setup(self, config: dict) -> None:
+        config = dict(config or {})
+        offline = config.get("offline_data")
+        if offline is not None and not hasattr(offline, "to_numpy") \
+                and "returns" not in offline:
+            # Derive returns-to-go from logged rewards/dones.
+            gamma = config.get("gamma", 0.99)
+            offline = dict(offline)
+            offline["returns"] = discounted_returns(
+                np.asarray(offline["rewards"], np.float32),
+                np.asarray(offline["dones"], np.float32), gamma)
+            config["offline_data"] = offline
+        super().setup(config)
+
+
+MARWIL._default_config = MARWILConfig()
+MARWILConfig.algo_class = MARWIL

@@ -1,17 +1,19 @@
-"""SAC, discrete actions: the maximum-entropy actor-critic, learner side
-(port of ray_tpu/rl/sac.py `sac_params_init`, `sac_post_update`,
-`SAC.loss_builder`).  The critic, actor and temperature losses sum into
-one loss; detach() stands exactly where the reference's stop_gradient
-does, routing each term to its own sub-tree, and the target critics move
-only by the polyak post-update.  Replay and the driver wait for the
-runtime (rl/algorithm.py)."""
+"""SAC, discrete actions: the maximum-entropy actor-critic (port of
+ray_tpu/rl/sac.py `sac_params_init`, `sac_post_update`, `SACConfig`,
+`SAC`).  The critic, actor and temperature losses sum into one loss;
+detach() stands exactly where the reference's stop_gradient does,
+routing each term to its own sub-tree, and the target critics move only
+by the polyak post-update.  The training loop fills a replay buffer from the
+env runners' raw fragments and samples `updates_per_step` minibatches a
+step."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.rl import models
-from ray_tpu_torch.rl.algorithm import Algorithm
+from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rl.replay import ReplayBuffer
 
 
 def sac_params_init(generator, obs_dim: int, n_actions: int,
@@ -42,6 +44,33 @@ def sac_post_update(config: dict):
                 t.copy_((1.0 - tau) * t + tau * params[live][k])
         return params
     return post
+
+
+class SACConfig(AlgorithmConfig):
+    def __init__(self):
+        super().__init__()
+        self.lr = 3e-4
+        self.tau = 0.005
+        self.replay_capacity = 50_000
+        self.learning_starts = 500
+        self.train_batch_size = 256
+        self.sgd_batch_size = 64
+        self.target_entropy = None   # default: 0.98 * log(n_actions)
+        self.updates_per_step = 4
+
+    def training(self, *, tau=None, replay_capacity=None,
+                 learning_starts=None, sgd_batch_size=None,
+                 target_entropy=None, updates_per_step=None,
+                 **kw) -> "SACConfig":
+        for name, v in [("tau", tau), ("replay_capacity", replay_capacity),
+                        ("learning_starts", learning_starts),
+                        ("sgd_batch_size", sgd_batch_size),
+                        ("target_entropy", target_entropy),
+                        ("updates_per_step", updates_per_step)]:
+            if v is not None:
+                setattr(self, name, v)
+        super().training(**kw)
+        return self
 
 
 def _q_of(params, name, obs, actions):
@@ -102,3 +131,26 @@ class SAC(Algorithm):
                            "actor_loss": actor_loss, "alpha": alpha,
                            "entropy": entropy.mean()}
         return loss_fn
+
+    def setup(self, config: dict) -> None:
+        super().setup(config)
+        self.replay = ReplayBuffer(self.cfg["replay_capacity"],
+                                   seed=self.cfg["seed"])
+
+    def training_step(self) -> dict:
+        # Collection rides the shared env->learner connector pipeline
+        # (RecordEpisodeMetrics + ConcatFragments), like PPO/DQN/IMPALA.
+        batch = self._collect(with_gae=False)
+        self.replay.add_batch(batch)
+        if len(self.replay) < self.cfg["learning_starts"]:
+            return {"buffer_size": float(len(self.replay))}
+        metrics: dict = {}
+        for _ in range(self.cfg.get("updates_per_step", 4)):
+            sample = self.replay.sample(self.cfg["sgd_batch_size"])
+            metrics = self.learner_group.update(sample, num_sgd_iter=1)
+        self._params_np = self.learner_group.get_params_numpy()
+        return metrics
+
+
+SAC._default_config = SACConfig()
+SACConfig.algo_class = SAC

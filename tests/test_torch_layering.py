@@ -62,6 +62,9 @@ def test_walk_covers_the_package_and_chip_smoke():
                 "ray_tpu_torch/rl/cql.py",
                 "ray_tpu_torch/rl/env.py",
                 "ray_tpu_torch/rl/replay.py",
+                "ray_tpu_torch/rl/connectors.py",
+                "ray_tpu_torch/rl/env_runner.py",
+                "ray_tpu_torch/rl/multi_agent.py",
                 "ray_tpu_torch/rl/dreamerv3.py",
                 "ray_tpu_torch/train/backend.py",
                 "ray_tpu_torch/train/session.py",

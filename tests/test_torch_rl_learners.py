@@ -18,6 +18,10 @@ config; the port's takes the reference's initial params through
   the algorithm has one) leaves params within 1e-4 and returns the last
   minibatch's metrics within 1e-4.
 
+The algorithms' training loops (env runners, learner groups,
+connectors) are held to the reference in
+tests/test_torch_rl_algorithms.py.
+
 No test boots the ray_tpu runtime."""
 import numpy as np
 import pytest
@@ -266,14 +270,22 @@ def test_discounted_returns_match_reference():
 
 
 def test_algorithms_raise_until_the_driver_is_ported():
+    """The training loops are ported: building any of the eight without
+    a runtime that makes actors raises a ValueError naming
+    LocalRuntime."""
     import importlib
 
+    offline = {"obs": np.zeros((4, OBS), np.float32),
+               "actions": np.zeros(4, np.int64),
+               "rewards": np.zeros(4, np.float32),
+               "next_obs": np.zeros((4, OBS), np.float32),
+               "dones": np.zeros(4, np.float32)}
     for algo in ALGOS:
         cls = getattr(importlib.import_module(f"ray_tpu_torch.rl.{algo}"),
                       CLASSES[algo])
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 7, driver half"):
-            cls({"env": "CartPole-v1"})
+        with pytest.raises(ValueError, match="LocalRuntime"):
+            cls({"env": "CartPole-v1", "offline_data": offline},
+                device="cpu")
 
 
 def test_learner_device_and_state():
