@@ -101,6 +101,23 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  no paged launch, every counted window a replay.  Then a
                  wave of fresh prompts under torch.profiler: busy share
                  and device time by kernel group.
+  4e. serve_8b_observed -- the same model and weights (share_params) on
+                 an engine at its defaults whose runtime is a
+                 `LocalRuntime` with its recorder on: the serve_8b wave of
+                 eight requests, each submitted under a span of its own.
+                 Every request's trace holds llm.queue, llm.prefill,
+                 llm.first_token and llm.decode_window; the distinct window
+                 spans number the wave's decode windows, all replays; the
+                 serve_llm_prefill_tokens / _decode_tokens /
+                 _prefix_hit_tokens counters after stats() equal stats()'s
+                 counts; the hbm_kv row's pool_bytes equal the cache
+                 tensors' bytes.  Then four waves of fresh prompts with the
+                 recorder off, on, off, on: decode tokens/s of each.  Then
+                 a PD pair on one copy of the weights with one
+                 `serve.kv_export` error armed: the first request falls
+                 back ("export_failed") and completes, the second
+                 migrates.  Counters zeroed before the first wave, read
+                 after it.
   5. train_small_f32 -- three `make_train_step` steps of `debug` in f32
                  (TF32 off) at seq 100, batch 2, from the same params and
                  batch on CUDA (kernels) and on the CPU (plain versions),
@@ -199,6 +216,36 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  window (`rl.weight_sync` crash; it resumes from the
                  newest checkpoint, learner_restarts is 1 and epoch
                  advances); after both, `kv_check` on every worker.
+  7e. rlhf_mesh_small_f32 -- the mesh GRPO learner (`GRPOLearner(mesh=)`)
+                 at `debug` in f32 (TF32 off) on a one-rank NCCL group (a
+                 file:// store, a group timeout, the group left at the
+                 end) and its `create_mesh(MeshConfig(data=1))`, on CUDA,
+                 against the single-device learner on the CPU and on CUDA
+                 from the same params: three whole-batch updates (lr 1e-2,
+                 kl_coeff 0.1) of a seeded batch of 8 rows in groups of 4.
+                 Against the CPU: the advantages of every update, the
+                 first update's losses, KL and ratio, and its gradients
+                 relative to each leaf's largest, within 1e-4 (the later
+                 updates' metrics and the params are reported: Adam's eps
+                 lets f32 rounding pick a step's sign, so the devices'
+                 params part after the first step).  Against the CUDA
+                 single-device learner: the losses equal and the params
+                 within 1e-4 after three updates; a checkpoint of the
+                 mesh learner loads into a
+                 single-device learner to the bit and the reverse;
+                 launches: dQ and dK/dV once a layer an update, all on the
+                 f32 (FMA) routes.
+  7f. rlhf_mesh_learner_350m -- the same at `bench-350m` width and depth
+                 in bf16, on a batch of rlhf_350m's shape (16 completions
+                 of 64 tokens on 384-token prompts, padded to 512, groups
+                 of 8; behavior logprobs the params' scores plus noise),
+                 lr 1e-6: the first update's loss and params against the
+                 single-device learner's from the same params (equal, or
+                 within the bf16 tolerance; the differences printed), then
+                 three timed updates of each (a device sync around each),
+                 the ms of each learner's `get_params_numpy` (the mesh's
+                 is its gather), and the forward, dQ and dK/dV launches of
+                 every update, on the bf16 (wgmma) routes only.
 
   8. moe_small_f32 -- the MoE family (`moe-debug`, f32, TF32 off) on CUDA
                  and on the CPU from the same params and tokens (batch 2 x
@@ -314,7 +361,8 @@ Phase `kernels` also holds the flash forward and backward at the Mixtral
 layer's shape ([2, 4096, 32, 8, 128], bf16, timed) and at the ViT-B/16
 layer's ([256, 197, 12, 12, 64], bf16, non-causal, timed).
 
-The line before the last is {"kernels": [...]}, one entry per kernel
+A line {"phase": "wall", "seconds": ...} gives the script's time.  The
+line before the last is {"kernels": [...]}, one entry per kernel
 (the forward, dQ and dK/dV: one per dtype route) with each main path's
 launches and each timed layer's times; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
@@ -323,6 +371,7 @@ repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1658,6 +1707,173 @@ def phase_serve_8b_dense(card, cfg, params):
     return launches
 
 
+# --------------------------------- phase 4e: 8B with the recorder on
+def shared_server():
+    """LLMServer whose engine decodes with the caller's tensors
+    (share_params=True): servers built so share one copy of the 8B
+    weights."""
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+
+    class Shared(LLMServer):
+        def _new_engine(self, kwargs):
+            return LLMEngine(self._cfg, self._params, device=self._device,
+                             runtime=self._runtime, share_params=True,
+                             **kwargs)
+
+    return Shared
+
+
+def traced_wave(rt, eng, prompts, new):
+    """`prompts` submitted together, each under its own span of `rt` (its
+    trace); (results, trace contexts)."""
+    ctxs, futs = [], []
+    for p in prompts:
+        with rt.span("smoke.request"):
+            ctxs.append(rt.trace_current())
+            futs.append(eng.submit(p, max_new_tokens=new))
+    return [f.result(timeout=600) for f in futs], ctxs
+
+
+def phase_serve_8b_observed(card, cfg, params):
+    """The serve_8b wave on an engine whose runtime is a `LocalRuntime`
+    with its recorder on, then the same wave shape with it off and on in
+    turn, then a PD pair with one `serve.kv_export` error armed (see 4e
+    in the module docstring)."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+    from ray_tpu_torch.serve.runtime import LocalHandle, LocalRuntime
+    from ray_tpu_torch.tools.profile_serve import wave_decode_rate
+
+    V, new = cfg.vocab_size, 64
+    rng = np.random.default_rng(SEED + 31)
+    waves = [[rng.integers(1, V, size=n).tolist() for n in MAIN_PROMPTS]
+             for _ in range(5)]
+    warm = rng.integers(1, V, size=300).tolist()
+    rt = LocalRuntime()
+    eng = LLMEngine(cfg, params, share_params=True, seed=SEED,
+                    name="observed", runtime=rt)
+    K = eng.steps_per_sync
+    eng.start()
+    try:
+        eng.generate(warm, max_new_tokens=K + 1)     # captures the window
+        torch.cuda.synchronize()
+        zero_serve_counts()
+        s0 = eng.stats()
+        res, ctxs = traced_wave(rt, eng, waves[0], new)
+        s1 = eng.stats()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        traces = [rt.recorder.spans(c[0]) for c in ctxs]
+        metrics = rt.recorder.metrics()
+        rows = rt.recorder.memory_rows()
+        pool_bytes = sum(t.numel() * t.element_size() for t in
+                         eng.cache["k"] + eng.cache["v"]
+                         + [eng.cache["pos"]])
+        rates = {"off": [], "on": []}
+        for i, mode in enumerate(("off", "on", "off", "on")):
+            rt.set_enabled(mode == "on")
+            res_i, _ = traced_wave(rt, eng, waves[1 + i], new)
+            rates[mode].append(wave_decode_rate(res_i))
+        rt.set_enabled(True)
+        spans_total = len(rt.recorder.spans())
+    finally:
+        eng.stop()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # A PD pair on one copy of the weights, one serve.kv_export error
+    # armed: the first request falls back to serving unified, the second
+    # migrates.
+    Shared = shared_server()
+    prt = LocalRuntime()
+    knobs = dict(seed=SEED, max_batch=8, page_size=512, runtime=prt)
+    dec = Shared(cfg, params=params, role="decode", **knobs)
+    local = LocalHandle(dec)
+    pre = Shared(cfg, params=params, role="prefill",
+                 decode_deployment=local, **knobs)
+
+    def call(req):
+        return asyncio.run(asyncio.wait_for(pre(req), 600))
+
+    try:
+        prt.arm("serve.kv_export", "nth:1+raise")
+        faulted = call({"prompt": waves[0][2], "max_new_tokens": 8})
+        migrated = call({"prompt": waves[0][3], "max_new_tokens": 8})
+        pd_stats = pre.stats()["pd"]
+        checks = (pre.kv_check(), dec.kv_check())
+    finally:
+        pre.shutdown()
+        dec.shutdown()
+        local.close()
+    del pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    want = ("llm.queue", "llm.prefill", "llm.first_token",
+            "llm.decode_window")
+    names = [[r["name"] for r in t] for t in traces]
+    windows = {(r["t0"], r["t1"]) for t in traces for r in t
+               if r["name"] == "llm.decode_window"}
+    wave_windows = s1["decode_windows"] - s0["decode_windows"]
+    replays = s1["graph_replays"] - s0["graph_replays"]
+
+    def counter(name):
+        # A counter never incremented holds no series: it reads 0.
+        vals = [v["value"] for v in metrics[name]["values"]
+                if v["tags"]["engine"] == "observed"]
+        return vals[0] if vals else 0.0
+
+    counters = {k: counter(f"serve_llm_{k}") for k in (
+        "prefill_tokens", "decode_tokens", "prefix_hit_tokens")}
+    stats = {k: s1[k] for k in counters}
+    hbm = [r for r in rows if r["tag"] == "hbm_kv"]
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    row = {"phase": "serve_8b_observed", "card": card,
+           "model": "llama3-8b", "dtype": "bfloat16", "steps_per_sync": K,
+           "prompt_tokens": MAIN_PROMPTS, "new_tokens_each": new,
+           "traces_with_every_stage": sum(set(want) <= set(n)
+                                          for n in names),
+           "requests": len(res), "spans_per_trace": [len(n) for n in names],
+           "window_spans_distinct": len(windows),
+           "decode_windows": wave_windows, "graph_replays": replays,
+           "counters": counters, "stats": stats,
+           "hbm_kv_row": hbm[0] if hbm else None,
+           "cache_bytes": pool_bytes,
+           "decode_tokens_per_s": rates, "mean_decode_tokens_per_s": mean,
+           "on_over_off": mean["on"] / mean["off"],
+           "spans_recorded": spans_total, "launches": launches,
+           "pd": {"faulted": faulted.get("pd_fallback"),
+                  "faulted_tokens": len(faulted["tokens"]),
+                  "migrated": bool(migrated.get("disagg")),
+                  "migrated_tokens": len(migrated["tokens"]),
+                  "fallbacks": pd_stats["fallbacks"],
+                  "migrations": pd_stats["migrations"],
+                  "kv_check": list(checks)}}
+    emit(row)
+    if row["traces_with_every_stage"] != len(res) \
+            or any(len(r["tokens"]) != new for r in res):
+        raise AssertionError(f"serve_8b_observed: traces {names}")
+    if not (len(windows) == wave_windows == replays > 0):
+        raise AssertionError(f"serve_8b_observed: {len(windows)} window "
+                             f"spans, {wave_windows} windows, {replays} "
+                             "replays")
+    if counters != stats:
+        raise AssertionError(f"serve_8b_observed: counters {counters} != "
+                             f"stats {stats}")
+    if not hbm or hbm[0]["pool_bytes"] != pool_bytes:
+        raise AssertionError(f"serve_8b_observed: hbm_kv {hbm} against "
+                             f"{pool_bytes} cache bytes")
+    pd = row["pd"]
+    if not (pd["faulted"] == "export_failed" and pd["faulted_tokens"] == 8
+            and pd["migrated"] and pd["migrated_tokens"] == 8
+            and pd["fallbacks"] == 1 and pd["migrations"] == 1):
+        raise AssertionError(f"serve_8b_observed: PD {pd}")
+    if launches["paged_decode_attention"] != replays * paged_per_replay(
+            cfg, K) or launches["flash_attention_fwd/wgmma"] == 0:
+        raise AssertionError(f"serve_8b_observed: launches {launches}")
+    return launches
+
+
 # --------------------------------------------- phase 5: small f32 training
 def flash_counts() -> dict:
     """Launches of each flash wrapper and, as "<wrapper>/<route>", of each
@@ -2394,6 +2610,297 @@ def phase_rlhf_350m(card):
         raise AssertionError("rlhf_350m: a second trainer from the same "
                              "seed sampled other version-0 tokens")
     return launches, row["mean"]
+
+
+# ------------------------------------ phases 7e-7f: the mesh GRPO learner
+MESH_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank NCCL group on a file:// store in a temporary directory
+    (a group timeout; the group left and the store removed at the end)
+    and `create_mesh(MeshConfig(data=1))` over it: the card's mesh."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{store}/store", world_size=1,
+            rank=0, timeout=datetime.timedelta(seconds=300))
+        yield create_mesh(MeshConfig(data=1))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def grpo_batch(cfg, params, rows, prompt_len, new, width, group, seed):
+    """A trajectory batch of `rows` completions of `new` tokens on
+    `prompt_len`-token prompts, padded to `width` (the rollout worker's
+    pow2 padding), in groups of `group`, from a numpy seed: the behavior
+    logprobs are `params`' scores plus noise (so ratios clip), the
+    rewards normal."""
+    from ray_tpu_torch.models import llama
+
+    rng = np.random.default_rng(seed)
+    total = prompt_len + new
+    toks = np.zeros((rows, width), np.int32)
+    toks[:, :total] = rng.integers(1, cfg.vocab_size, (rows, total))
+    with torch.no_grad():
+        lp = llama.token_logprobs(
+            params, torch.from_numpy(toks).to(params["embed"].device),
+            cfg).float().cpu().numpy()
+    mask = np.zeros((rows, width - 1), np.float32)
+    mask[:, prompt_len - 1:total - 1] = 1.0
+    return {"tokens": toks,
+            "logprobs": (lp + rng.normal(0, 0.2, lp.shape)).astype(
+                np.float32),
+            "mask": mask, "rewards": rng.normal(size=rows).astype(
+                np.float32),
+            "group_size": group, "rollout_tokens": rows * new,
+            "weight_version": 0}
+
+
+def leaf_diffs(a_tree, b_tree) -> tuple[float, float]:
+    """(max |a - b|, max over leaves of |a - b| / max |b|) of two param
+    trees, DTensors gathered."""
+    from ray_tpu_torch.train.step import param_leaves
+    from torch.distributed.tensor import DTensor
+
+    def full(t):
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        return t.detach().float()
+
+    worst = rel = 0.0
+    for a, b in zip(param_leaves(a_tree), param_leaves(b_tree)):
+        a, b = full(a), full(b)
+        d = (a - b.to(a.device)).abs().max().item()
+        worst = max(worst, d)
+        rel = max(rel, d / max(b.abs().max().item(), 1e-30))
+    return worst, rel
+
+
+def phase_rlhf_mesh_small():
+    """The mesh GRPO learner at `debug` in f32 (TF32 off) on a one-rank
+    NCCL mesh on CUDA, against the single-device learner on the CPU and
+    on CUDA from the same params (see 7e in the module docstring)."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.rl.rlhf import GRPOLearner, RLHFConfig
+    from ray_tpu_torch.train.step import param_leaves
+    from torch.distributed.tensor import DTensor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(llama.llama_configs()["debug"],
+                              dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(SEED))
+    batch = grpo_batch(cfg, params, rows=8, prompt_len=10, new=14,
+                       width=32, group=4, seed=SEED + 41)
+    rc = RLHFConfig(model=cfg, seed=SEED, lr=1e-2, kl_coeff=0.1,
+                    group_size=4)
+    n = 3
+    cpu = GRPOLearner(rc, params=params, device="cpu")
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    try:
+        with one_rank_mesh() as mesh:
+            ml = GRPOLearner(rc, params=tree_to(params, "cuda"), mesh=mesh,
+                             device="cuda")
+            single = GRPOLearner(rc, params=tree_to(params, "cuda"),
+                                 device="cuda")
+            placements = sorted({str(p.placements)
+                                 for p in param_leaves(ml.params)})
+            torch.cuda.synchronize()
+            zero_flash_counts()
+            runs = {"mesh": [], "cpu": [], "cuda": []}
+            grads = {}
+            for name, lr in (("mesh", ml), ("cpu", cpu), ("cuda", single)):
+                for i in range(n):
+                    runs[name].append(lr.update(batch))
+                    if i == 0:
+                        grads[name] = [
+                            (p.grad.full_tensor() if isinstance(
+                                p.grad, DTensor) else p.grad).detach()
+                            .to("cpu", copy=True)
+                            for p in param_leaves(lr.params)]
+                if name == "mesh":
+                    torch.cuda.synchronize()
+                    launches = flash_counts()
+            vs_cpu = leaf_diffs(ml.params, cpu.params)
+            vs_cuda = leaf_diffs(ml.params, single.params)
+            # Checkpoints across layouts: the mesh learner's into a
+            # single-device learner, and the reverse.
+            ml.save_async(os.path.join(d, "mesh"))
+            ml.ckpt_wait()
+            into_single = GRPOLearner(rc, params=tree_to(params, "cuda"),
+                                      device="cuda")
+            into_single.load(os.path.join(d, "mesh"))
+            single.save_async(os.path.join(d, "single"))
+            single.ckpt_wait()
+            into_mesh = GRPOLearner(rc, params=tree_to(params, "cuda"),
+                                    mesh=mesh, device="cuda")
+            into_mesh.load(os.path.join(d, "single"))
+            ckpt = {"mesh_to_single_bitwise":
+                        into_single.param_hash() == ml.param_hash(),
+                    "single_to_mesh_bitwise":
+                        into_mesh.param_hash() == single.param_hash(),
+                    "versions": [into_single.version, into_mesh.version]}
+            nxt = [lr.update(batch)["loss"] for lr in (ml, into_single)]
+            ckpt["next_loss_diff"] = abs(nxt[0] - nxt[1])
+            mesh_desc = str(mesh)
+            del ml, single, into_single, into_mesh
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Per update: the first runs at equal params, the later ones at
+    # params that Adam's first steps moved apart on the two devices (the
+    # eps amplification noted at rlhf_small), so the bound is the first
+    # update's; the later ones are reported, and held against the CUDA
+    # single-device learner instead.
+    keys = ("loss", "policy_loss", "kl", "ratio_mean")
+    diffs = [{k: abs(a[k] - b[k]) for k in keys}
+             | {"advantages": float(np.abs(a["advantages"]
+                                           - b["advantages"]).max())}
+             for a, b in zip(runs["mesh"], runs["cpu"])]
+    grad_rel = max(float((a - b).abs().max()
+                         / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(grads["mesh"], grads["cpu"]))
+    same_as_cuda = all(a["loss"] == b["loss"] for a, b in
+                       zip(runs["mesh"], runs["cuda"]))
+    row = {"phase": "rlhf_mesh_small_f32", "model": "debug",
+           "dtype": "float32", "mesh": mesh_desc, "placements": placements,
+           "tf32": torch.backends.cuda.matmul.allow_tf32, "updates": n,
+           "tol": MESH_TOL, "max_abs_diff_vs_cpu_per_update": diffs,
+           "metrics_mesh": [{k: m[k] for k in keys} for m in runs["mesh"]],
+           "first_update_grads_rel_vs_cpu": grad_rel,
+           "params_vs_cpu_after_3": {"max_abs": vs_cpu[0],
+                                     "max_rel": vs_cpu[1]},
+           "params_vs_cuda_single_after_3": {"max_abs": vs_cuda[0],
+                                             "max_rel": vs_cuda[1]},
+           "losses_equal_cuda_single": same_as_cuda,
+           "loss_mesh": [m["loss"] for m in runs["mesh"]],
+           "loss_cpu": [m["loss"] for m in runs["cpu"]],
+           "checkpoint": ckpt, "launches": launches}
+    emit(row)
+    bad = [k for k, v in diffs[0].items() if v > MESH_TOL]
+    if bad or grad_rel > MESH_TOL \
+            or any(d["advantages"] > MESH_TOL for d in diffs):
+        raise AssertionError(f"rlhf_mesh_small: {bad}, the advantages or "
+                             f"the first gradients ({grad_rel}) left the "
+                             "CPU's")
+    if vs_cuda[0] > MESH_TOL or not same_as_cuda:
+        raise AssertionError(f"rlhf_mesh_small: params {vs_cuda} or losses "
+                             "away from the single-device learner on CUDA")
+    if not (ckpt["mesh_to_single_bitwise"] and ckpt["single_to_mesh_bitwise"]
+            and ckpt["next_loss_diff"] <= MESH_TOL):
+        raise AssertionError(f"rlhf_mesh_small: checkpoints {ckpt}")
+    per = cfg.n_layers * n
+    if (launches["flash_attention_fwd/fma"] < per
+            or launches["flash_attention_bwd_dq/fma"] != per
+            or launches["flash_attention_bwd_dkv/fma"] != per
+            or any(launches[f"{k}/wgmma"] for k in FLASH_KERNELS)):
+        raise AssertionError(f"rlhf_mesh_small: launches {launches}")
+    return launches
+
+
+def phase_rlhf_mesh_learner_350m(card):
+    """The mesh GRPO learner at `bench-350m` width and depth in bf16 on a
+    one-rank NCCL mesh against the single-device learner from the same
+    params, on a trajectory batch of rlhf_350m's shape (see 7f in the
+    module docstring)."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.rl.rlhf import GRPOLearner, RLHFConfig
+
+    cfg = llama.llama_configs()["bench-350m"]
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    shape = dict(rows=16, prompt_len=RLHF_350M["prompt_len"],
+                 new=RLHF_350M["max_new_tokens"], width=512,
+                 group=RLHF_350M["group_size"])
+    batch = grpo_batch(cfg, params, seed=SEED + 43, **shape)
+    rc = RLHFConfig(model=cfg, seed=SEED, lr=RLHF_350M["lr"],
+                    group_size=RLHF_350M["group_size"])
+    n_timed = 3
+    with one_rank_mesh() as mesh:
+        learners = {"single": GRPOLearner(rc, params=params),
+                    "mesh": GRPOLearner(rc, params=params, mesh=mesh)}
+        del params
+        out = {k: {"loss": [], "update_ms": [], "launches": []}
+               for k in learners}
+        for i in range(1 + n_timed):          # update 0: the comparison
+            for name, lr in learners.items():
+                torch.cuda.synchronize()
+                zero_flash_counts()
+                t0 = time.perf_counter()
+                m = lr.update(batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                out[name]["loss"].append(m["loss"])
+                out[name]["launches"].append(flash_counts())
+                if i:
+                    out[name]["update_ms"].append(ms)
+            if i == 0:
+                first = leaf_diffs(learners["mesh"].params,
+                                   learners["single"].params)
+        gather_ms = {}
+        for name, lr in learners.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = lr.get_params_numpy()
+            gather_ms[name] = (time.perf_counter() - t0) * 1e3
+            del host
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del learners
+    gc.collect()
+    torch.cuda.empty_cache()
+    mean = {k: sum(v["update_ms"]) / n_timed for k, v in out.items()}
+    launches = {n: sum(per[n] for per in out["mesh"]["launches"])
+                for n in out["mesh"]["launches"][-1]}
+    row = {"phase": "rlhf_mesh_learner_350m", "card": card,
+           "model": "bench-350m", "dtype": "bfloat16",
+           "batch": {**shape, "positions": 16 * (shape["prompt_len"]
+                                                 + shape["new"] - 1)},
+           "lr": rc.lr, "first_update_loss": {
+               k: v["loss"][0] for k, v in out.items()},
+           "first_update_loss_diff": abs(out["mesh"]["loss"][0]
+                                         - out["single"]["loss"][0]),
+           "params_after_first_update": {"max_abs_diff": first[0],
+                                         "max_rel_diff": first[1]},
+           "update_ms": {k: v["update_ms"] for k, v in out.items()},
+           "mean_update_ms": mean,
+           "mesh_over_single": mean["mesh"] / mean["single"],
+           "get_params_numpy_ms": gather_ms,
+           "launches_per_update": {k: v["launches"][-1]
+                                   for k, v in out.items()},
+           "peak_mem_gb": peak_gb, "tol_bf16": TOL[torch.bfloat16]}
+    emit(row)
+    if not all(math.isfinite(x) for v in out.values() for x in v["loss"]):
+        raise AssertionError(f"rlhf_mesh_learner_350m: non-finite: {row}")
+    if row["first_update_loss_diff"] > TOL[torch.bfloat16] * max(
+            1.0, abs(out["single"]["loss"][0])) \
+            or first[1] > TOL[torch.bfloat16]:
+        raise AssertionError(f"rlhf_mesh_learner_350m: the mesh learner "
+                             f"left the single-device one: {row}")
+    for name, rec in out.items():
+        for per in rec["launches"]:
+            if (per["flash_attention_fwd/wgmma"] < cfg.n_layers
+                    or per["flash_attention_bwd_dq/wgmma"] != cfg.n_layers
+                    or per["flash_attention_bwd_dkv/wgmma"] != cfg.n_layers
+                    or any(per[f"{k}/fma"] for k in FLASH_KERNELS)):
+                raise AssertionError(f"rlhf_mesh_learner_350m {name}: "
+                                     f"launches {per}")
+    return launches
 
 
 # ------------------------------- phases 7c-7d: the RLHF actor topology
@@ -4042,7 +4549,7 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = _kernels.build_all()
     ptxas = {n: ptxas_report(_kernels.nvcc_log(n)) for n in _kernels.SOURCES}
     emit({"phase": "device", "card": card,
@@ -4074,6 +4581,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     server = phase_serve_8b_server(card, cfg8, params8)
     dense8 = phase_serve_8b_dense(card, cfg8, params8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    observed = phase_serve_8b_observed(card, cfg8, params8)
     del params8
     gc.collect()
     torch.cuda.empty_cache()
@@ -4086,6 +4596,8 @@ def main() -> int:
     rlhf, rlhf_mean = phase_rlhf_350m(card)
     gc.collect()
     torch.cuda.empty_cache()
+    mesh_small = phase_rlhf_mesh_small()
+    mesh350 = phase_rlhf_mesh_learner_350m(card)
     actors_small = phase_rlhf_actors_small()
     actors = phase_rlhf_actors_350m(card, rlhf_mean)
     gc.collect()
@@ -4216,6 +4728,20 @@ def main() -> int:
         else:
             kernels[i]["launches_train_mixtral_4l"] = mixtral[name]
             kernels[i]["launches_train_vit_b16"] = vit_b16[name]
+    # The mesh GRPO learner (f32 at `debug`, bf16 at bench-350m) and the
+    # 8B engine with the recorder on.
+    for i, name in ((2, "flash_attention_fwd/fma"),
+                    (4, "flash_attention_bwd_dq/fma"),
+                    (6, "flash_attention_bwd_dkv/fma")):
+        kernels[i]["launches_rlhf_mesh_small_f32"] = mesh_small[name]
+    for i, name in ((1, "flash_attention_fwd/wgmma"),
+                    (3, "flash_attention_bwd_dq/wgmma"),
+                    (5, "flash_attention_bwd_dkv/wgmma")):
+        kernels[i]["launches_rlhf_mesh_learner_350m"] = mesh350[name]
+    kernels[0]["launches_serve_8b_observed"] = \
+        observed["paged_decode_attention"]
+    kernels[1]["launches_serve_8b_observed"] = \
+        observed["flash_attention_fwd/wgmma"]
     # Each bf16 kernel's times at the rlhf_350m and Mixtral layer shapes.
     for i, row, part in ((0, paged["350m_rlhf_decode"], None),
                          (1, fwd["350m_rlhf_score"], None),
@@ -4237,6 +4763,7 @@ def main() -> int:
             "bound_ms": row[f"{pre}bound_ms"],
             "bound_by": row[f"{pre}bound_by"],
             "library_ms": row["library_ms"]}
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

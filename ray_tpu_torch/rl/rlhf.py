@@ -53,19 +53,39 @@ Gumbel-max, `params=None` weights from a `torch.Generator` seeded by
 `seed`: two local runs from one seed are bit-identical on one device,
 but neither matches JAX's threefry streams.
 
+The mesh learner
+----------------
+`GRPOLearner(cfg, params, mesh=mesh)` lays its parameters out on a torch
+`DeviceMesh` (parallel/mesh.py) by `llama.param_logical_axes`, as
+`train/step.py`'s `sharded_init` does; Adam's moments take the same
+layout.  The port's mesh is one rank per device, where the reference's is
+one GSPMD program over all of them, so a mesh learner is a GROUP of
+ranks: every rank of the mesh builds `GRPOLearner(..., mesh=mesh)` from
+the same params and calls `update` with the same trajectories.  Each
+minibatch's arrays are split over data x fsdp (`batch_shardings`), the
+same `_minibatch` runs on the DTensors (attention on local shards,
+through the kernels on CUDA), and every rank returns the same metrics and
+advantages.  Gathering the full tree is a collective, so every rank
+calls `get_params_numpy`, `param_hash`, `params_tree`, `state_tree`,
+`save_async` / `ckpt_wait` / `load` and `broadcast_weights` together: the
+mesh's first rank (its "lead") writes the checkpoint, joins the weight
+broadcast group and broadcasts; the others gather and return.  A
+checkpoint holds full tensors, so a mesh learner's loads into a
+single-device learner and the reverse.  `RLHFTrainer` builds no mesh
+learner, as in the reference.
+
 Differences from the reference (ROADMAP.md queue 3): `cfg.runtime` (an
 added config field) carries every runtime call, and the actor topology
-needs one that makes actors (ValueError otherwise).  `mesh` raises: the
-port's mesh is one rank per device, so a sharded learner is a group of
-ranks and comes with LearnerGroup (ROADMAP.md queue 1 item 7).
+needs one that makes actors (ValueError otherwise).  The mesh learner is
+a group of ranks, and its gathers are collectives (above).
 `get_params_numpy` returns CPU tensors (numpy has no bf16).  Checkpoints
 are `train/checkpoint.py`'s torch format.  The learner's metrics carry
 "update_s" (its own time, after the trajectories are in hand) and
 "rollout" (the trajectories' generation and scoring sums, and "gen_s_max",
-the slowest worker's generation).  No metrics registry or tracing emits
-beyond the runtime's `span` and `failpoint` hooks (item 1c).  `device` (an
-added config field) places the learner and the engines: CUDA unless
-"cpu" is asked for.
+the slowest worker's generation).  The rollout metrics and the engines'
+observability go through the runtime (rl/rollout_llm.py, serve/llm.py).
+`device` (an added config field) places the learner and the engines: CUDA
+unless "cpu" is asked for.
 """
 from __future__ import annotations
 
@@ -79,23 +99,26 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, distribute_tensor
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.models.convert import as_tensor
-from ray_tpu_torch.parallel.sharding import tree_map
+from ray_tpu_torch.parallel.sharding import (logical_sharding, shard_params,
+                                             tree_map)
 from ray_tpu_torch.collective.collective import broadcast_pytree
 from ray_tpu_torch.rl import rollout_llm
 from ray_tpu_torch.serve.runtime import ServeRuntime, makes_actors
 from ray_tpu_torch.train.checkpoint import Checkpoint
-from ray_tpu_torch.train.step import param_leaves
+from ray_tpu_torch.train.step import batch_shardings, param_leaves
 
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8)     # optax.adam's defaults
-MESH_LEARNER = (
-    "GRPOLearner(mesh=...): the port's mesh is one rank per device "
-    "(parallel/mesh.py), so a sharded learner is a group of ranks; it "
-    "comes with LearnerGroup (ROADMAP.md queue 1 item 7, the mesh "
-    "learner)")
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (a collective); a plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 @dataclasses.dataclass
@@ -236,27 +259,45 @@ class GRPOLearner:
     bit.  Its state (`state_tree`) is the params, Adam's moments "mu" /
     "nu" and update "count", and the version: what `save_async` writes,
     `load` reads, and `models.convert.grpo_state_from_jax` builds from
-    the reference learner's state."""
+    the reference learner's state.  With `mesh` (a DeviceMesh on the
+    learner's device type) the params and moments are DTensors and the
+    learner is one rank of a group (module docstring, "The mesh
+    learner")."""
 
     def __init__(self, config=None, params: Any = None, mesh=None,
                  device=None, **overrides):
         cfg = _to_config(config, overrides)
-        if mesh is not None:
-            raise NotImplementedError(MESH_LEARNER)
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                f"GRPOLearner(mesh=...) takes a torch DeviceMesh (from "
+                f"ray_tpu_torch.parallel.mesh.create_mesh over the default "
+                f"process group), got {type(mesh).__name__}")
         self.cfg = cfg
         self._runtime = cfg.runtime or ServeRuntime()
         self.mcfg = _model_config(cfg)
         self.device = resolve_device(
             device if device is not None else cfg.device, "GRPOLearner")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"GRPOLearner: the mesh is on {mesh.device_type!r} but the "
+                f"learner on {self.device.type!r}; pass "
+                f"device={mesh.device_type!r}, or a mesh made with "
+                f"create_mesh(..., {self.device.type!r})")
+        self.mesh = mesh
         src = params if params is not None else cfg.params
         if src is None:
             src = llama.init_params(self.mcfg, torch.Generator(
                 device=self.device).manual_seed(cfg.seed))
         # The learner's own tensors: never shared with an engine.
-        self.params = tree_map(
+        params = tree_map(
             lambda t: as_tensor(t).detach().to(
-                device=self.device, dtype=self.mcfg.dtype,
-                copy=True).requires_grad_(True), src)
+                device=self.device, dtype=self.mcfg.dtype, copy=True), src)
+        if mesh is not None:
+            params = shard_params(params, llama.param_logical_axes(
+                self.mcfg), mesh)
+        self.params = tree_map(lambda t: t.requires_grad_(True), params)
+        # On a mesh Adam's moments are made like their params: DTensors
+        # of the same layout.
         self.opt = torch.optim.Adam(param_leaves(self.params), lr=cfg.lr,
                                     **ADAM)
         self.version = 0
@@ -286,9 +327,33 @@ class GRPOLearner:
         kl = ((blogp - lp) * mask).sum() / denom
         loss = pi_loss + klc * kl
         loss.backward()
+        if self.mesh is not None:
+            for p in param_leaves(self.params):
+                if tuple(p.grad.placements) != tuple(p.placements):
+                    # A partial sum or another layout: reduce it to the
+                    # parameter's, as GSPMD does.
+                    p.grad = p.grad.redistribute(p.device_mesh,
+                                                 p.placements)
         self.opt.step()
-        return [x.detach() for x in (loss, pi_loss, kl,
-                                     (ratio * mask).sum() / denom)]
+        return [_full(x.detach()) for x in (loss, pi_loss, kl,
+                                            (ratio * mask).sum() / denom)]
+
+    @property
+    def _lead(self) -> bool:
+        """Whether this rank leads its mesh (its first rank); a learner
+        without a mesh leads itself."""
+        if self.mesh is None:
+            return True
+        return int(self.mesh.mesh.flatten()[0]) == self.mesh.get_rank()
+
+    def _placed(self, a: np.ndarray, axes: tuple) -> torch.Tensor:
+        """A host array on the learner's device; on a mesh, split by the
+        logical `axes`."""
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        if self.mesh is None:
+            return t
+        sh = logical_sharding(self.mesh, axes)
+        return distribute_tensor(t, sh.mesh, sh.placements)
 
     def update(self, trajs) -> dict:
         """One GRPO update over a trajectory batch or a list of them (or
@@ -308,18 +373,17 @@ class GRPOLearner:
         adv_all = group_advantages(batch["rewards"], K, self.cfg.adv_eps)
         mb = self.cfg.minibatch_size or B
         idx_order = self._shuffle(B) if mb < B else np.arange(B)
-
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                self.device)
-
+        rows = ("batch", "seq")       # batch_shardings' axes, [b, s] arrays
+        if self.mesh is not None:
+            assert batch_shardings(self.mesh).placements == \
+                logical_sharding(self.mesh, rows).placements
         out, n_mb = None, 0
         for s in range(0, B, mb):
             idx = idx_order[s:s + mb]
-            out = self._minibatch(dev(batch["tokens"][idx]),
-                                  dev(batch["mask"][idx]),
-                                  dev(batch["logprobs"][idx]),
-                                  dev(adv_all[idx]))
+            out = self._minibatch(self._placed(batch["tokens"][idx], rows),
+                                  self._placed(batch["mask"][idx], rows),
+                                  self._placed(batch["logprobs"][idx], rows),
+                                  self._placed(adv_all[idx], ("batch",)))
             n_mb += 1
         loss, pi_loss, kl, ratio = (float(x) for x in out)
         self.version += 1
@@ -347,41 +411,52 @@ class GRPOLearner:
         """Rank-0 side of the live weight sync: the param tree as one
         packed broadcast (packed before this returns).  Failpoint
         `rl.weight_sync` fires inside the sync window: a crash models the
-        learner dying mid-broadcast."""
+        learner dying mid-broadcast.  On a mesh every rank gathers the
+        tree (a collective) and only the lead fires the failpoint and
+        broadcasts; the others return the version."""
+        tree = self.params_tree()
+        if not self._lead:
+            return self.version
         self._runtime.failpoint("rl.weight_sync")
-        broadcast_pytree(self.params_tree(), src_rank, group_name,
-                         runtime=self._runtime)
+        broadcast_pytree(tree, src_rank, group_name, runtime=self._runtime)
         return self.version
 
     def init_collective_group(self, world_size: int, rank: int,
                               backend: str = "object_store",
                               group_name: str = "default") -> None:
         """Join the weight-broadcast group (`backend` is the runtime's
-        business and not read)."""
-        self._runtime.init_collective_group(world_size, rank, group_name)
+        business and not read).  Of a mesh, only the lead joins."""
+        if self._lead:
+            self._runtime.init_collective_group(world_size, rank,
+                                                group_name)
 
     def deregister_collective_group(self, group_name: str) -> None:
         """Drop this learner's state for a stale weight-sync epoch."""
-        self._runtime.deregister_collective_group(group_name)
+        if self._lead:
+            self._runtime.deregister_collective_group(group_name)
 
     def params_tree(self) -> dict:
         """The learner's parameter tensors themselves (detached views, no
         copy): what a local weight sync stages on the engine.  They change
-        at the next update."""
-        return tree_map(torch.Tensor.detach, self.params)
+        at the next update.  On a mesh: full copies, gathered (a
+        collective)."""
+        return tree_map(lambda t: _full(t.detach()), self.params)
 
     def get_params_numpy(self) -> dict:
         """Host copy of the param tree.  The name is the reference's; the
-        leaves are CPU tensors, since numpy has no bf16."""
-        return tree_map(lambda t: t.detach().to("cpu", copy=True),
-                         self.params)
+        leaves are CPU tensors, since numpy has no bf16.  On a mesh every
+        rank calls it (the gather is a collective) and gets the whole
+        tree."""
+        return tree_map(lambda t: _full(t.detach()).to("cpu", copy=True),
+                        self.params)
 
     def param_hash(self) -> str:
         """Stable content hash of the param tree: each leaf's raw bytes,
-        in param_leaves order (process-stable, never Python hash())."""
+        in param_leaves order (process-stable, never Python hash()).  On a
+        mesh, of the full leaves (a collective)."""
         h = hashlib.blake2b(digest_size=16)
         for leaf in param_leaves(self.params):
-            raw = leaf.detach().cpu().contiguous().reshape(-1)
+            raw = _full(leaf.detach()).cpu().contiguous().reshape(-1)
             h.update(raw.view(torch.uint8).numpy().tobytes())
         return h.hexdigest()
 
@@ -389,11 +464,12 @@ class GRPOLearner:
     def state_tree(self) -> dict:
         """(params, Adam mu / nu / count, version) as one tree of tensors
         (views of the live state, not copies; zeros before the first
-        update, as optax's fresh state)."""
+        update, as optax's fresh state).  On a mesh: full copies,
+        gathered (a collective)."""
         def moment(key):
             def get(p):
                 t = self.opt.state.get(p, {}).get(key)
-                return torch.zeros_like(p) if t is None else t
+                return _full(torch.zeros_like(p) if t is None else t)
             return tree_map(get, self.params)
 
         first = self.opt.state.get(param_leaves(self.params)[0], {})
@@ -407,28 +483,29 @@ class GRPOLearner:
     def load_state(self, state: dict) -> int:
         """Install a state tree (`state_tree`'s layout, tensors or numpy
         leaves): params copied into the learner's tensors in place, Adam's
-        moments and count replaced.  Returns the version."""
-        def put(p, s):
+        moments and count replaced.  Returns the version.  The leaves are
+        whole tensors; a mesh learner lays them out like its params."""
+        def like(p, s, what):
+            """Whole leaf `s` on the learner's device, laid out as `p`."""
             s = as_tensor(s)
             if tuple(s.shape) != tuple(p.shape):
-                raise ValueError(f"load_state: param shape "
+                raise ValueError(f"load_state: {what} shape "
                                  f"{tuple(s.shape)} != {tuple(p.shape)}")
-            p.copy_(s)
+            s = s.to(device=self.device, dtype=self.mcfg.dtype, copy=True)
+            if isinstance(p, DTensor):
+                s = distribute_tensor(s, p.device_mesh, p.placements)
+            return s
 
         with torch.no_grad():
-            tree_map(put, self.params, state["params"])
+            tree_map(lambda p, s: p.copy_(like(p, s, "param")),
+                     self.params, state["params"])
         opt = state["opt_state"]
         count = float(np.asarray(as_tensor(opt["count"]).cpu()))
         moments = [param_leaves(tree_map(
-            lambda t: as_tensor(t).to(device=self.device,
-                                      dtype=self.mcfg.dtype, copy=True),
-            opt[k])) for k in ("mu", "nu")]
+            lambda p, s: like(p, s, "moment"), self.params, opt[k]))
+            for k in ("mu", "nu")]
         self.opt.state.clear()
         for p, mu, nu in zip(param_leaves(self.params), *moments):
-            if tuple(mu.shape) != tuple(p.shape) \
-                    or tuple(nu.shape) != tuple(p.shape):
-                raise ValueError(f"load_state: moment shape "
-                                 f"{tuple(mu.shape)} != {tuple(p.shape)}")
             self.opt.state[p] = {"step": torch.tensor(count),
                                  "exp_avg": mu, "exp_avg_sq": nu}
         self.version = int(np.asarray(as_tensor(state["version"]).cpu()))
@@ -438,23 +515,38 @@ class GRPOLearner:
     def save_async(self, path: str) -> int:
         """Kick an ASYNC checkpoint of (params, opt_state, version).  The
         state is snapshot before this returns, so the next update may run
-        at once; `ckpt_wait()` confirms the write landed."""
-        ckpt = Checkpoint.from_pytree_async(self.state_tree(), path=path)
+        at once; `ckpt_wait()` confirms the write landed.  On a mesh every
+        rank gathers the state and the lead writes it."""
+        tree = self.state_tree()
+        ckpt = Checkpoint.from_pytree_async(tree, path=path) \
+            if self._lead else None
         self._pending_ckpt = (self.version, path, ckpt)
         return self.version
 
     def ckpt_wait(self) -> tuple | None:
         """Block for the in-flight async save; returns (version, path)
-        once durable, None if nothing pending."""
+        once durable, None if nothing pending.  On a mesh every rank
+        calls it and returns once the lead's write landed."""
         if self._pending_ckpt is None:
             return None
         version, path, ckpt = self._pending_ckpt
-        ckpt.wait()
+        if ckpt is not None:
+            ckpt.wait()
+        if self.mesh is not None:
+            self._mesh_barrier()
         self._pending_ckpt = None
         return (version, path)
 
+    def _mesh_barrier(self) -> None:
+        """Return on every rank of the mesh once all have reached it (an
+        all-reduce of a zero over every mesh dim)."""
+        z = torch.zeros((), device=self.device)
+        DTensor.from_local(z, self.mesh, [Partial()] * self.mesh.ndim,
+                           run_check=False).full_tensor()
+
     def load(self, path: str) -> int:
-        """Resume from a COMPLETED checkpoint directory."""
+        """Resume from a COMPLETED checkpoint directory (on a mesh, every
+        rank reads it)."""
         state = Checkpoint(path).to_pytree(target=self.state_tree())
         return self.load_state(state)
 

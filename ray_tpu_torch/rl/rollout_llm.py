@@ -25,12 +25,12 @@ with `max_concurrency >= 2`: `recv_weights` rides a second thread while
 `rollout` decodes.  Its runtime calls go through the `runtime` it is
 given: joining and leaving the trainer's weight-broadcast group, the
 packed broadcast (`collective.broadcast_pytree`), resolving pushed refs,
-and the failpoint site `rl.rollout_step` (at rollout entry: a `crash`
-models a rollout actor dying with a group in flight).
-
-Not ported yet (ROADMAP.md queue 1 item 1c): the rollout metrics
-(`ray_tpu/rl/rollout_llm.py:78`); the runtime's hooks are where they will
-attach.  Runs on CUDA unless `device="cpu"`.
+the failpoint site `rl.rollout_step` (at rollout entry: a `crash` models
+a rollout actor dying with a group in flight), and the rollout metrics
+(`_rollout_metrics`: rl_rollout_groups, rl_rollout_tokens and
+rl_rollout_prefix_hit_rate, tagged `worker`, updated at the end of each
+rollout).  The worker's engine reports to the same runtime.  Runs on CUDA
+unless `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -79,6 +79,22 @@ def target_token_reward(target: int) -> Callable:
     return fn
 
 
+def _rollout_metrics(runtime) -> dict:
+    """The rollout counters on `runtime`, tagged per worker (the
+    reference's names and descriptions)."""
+    tk = ("worker",)
+    return {
+        "groups": runtime.metric("counter", "rl_rollout_groups",
+                                 "GRPO prompt groups generated", tk),
+        "tokens": runtime.metric("counter", "rl_rollout_tokens",
+                                 "Completion tokens generated for RLHF",
+                                 tk),
+        "hit_rate": runtime.metric(
+            "gauge", "rl_rollout_prefix_hit_rate",
+            "Rollout prompt tokens served from the prefix cache", tk),
+    }
+
+
 class LLMRolloutWorker:
     """One rollout worker: paged-KV engine + trajectory scoring, in the
     caller's process or as an actor of `runtime`."""
@@ -98,7 +114,8 @@ class LLMRolloutWorker:
         self.name = name
         self._runtime = runtime or ServeRuntime()
         self.engine = LLMEngine(cfg, params, seed=seed, name=name,
-                                device=device, **ekw)
+                                device=device, runtime=self._runtime,
+                                **ekw)
         self.device = self.engine.device
         self.engine.start()
         self._reward = reward_fn or near_token_reward(
@@ -233,6 +250,12 @@ class LLMRolloutWorker:
         self.rollout_tokens += new_tokens
         hit = eng.stats().get("prefix_hit_tokens", 0) - hit0
         prefilled = eng.prefill_tokens - pre0
+        seen = hit + prefilled
+        m = _rollout_metrics(self._runtime)
+        tags = {"worker": self.name}
+        m["groups"].inc(len(prompts), tags)
+        m["tokens"].inc(new_tokens, tags)
+        m["hit_rate"].set(hit / seen if seen else 0.0, tags)
         return {
             "tokens": toks[:B], "logprobs": logp, "mask": mask,
             "prompt_len": prompt_len, "total_len": total_len,

@@ -59,10 +59,33 @@ reservation with copy-on-write) -> paged prefill (flash kernel on CUDA)
 Kill switches shared with the reference: RAY_TPU_PREFIX_CACHE=0 disables
 prefix matching, RAY_TPU_KV_PREEMPT=0 restores full-span up-front
 allocation, RAY_TPU_RL_WEIGHT_SYNC=0 drops weight updates (read per
-call), RAY_TPU_PREFIX_STORE=0 stops demotion (read per scan).  Not
-ported yet: the metrics, tracing, memory-ledger and failpoint hooks
-(ROADMAP.md queue 1 item 1c: they attach to the runtime seam's
-`failpoint` and `span`), capturing prefill.
+call), RAY_TPU_PREFIX_STORE=0 stops demotion (read per scan).  Prefill is not
+captured as a graph.
+
+Observability goes through the engine's `runtime` (serve/runtime.py; the
+null runtime by default, which records nothing), at the reference's
+sites and under its names:
+  - metrics (`_engine_metrics`): the serve_llm_* counters, flushed as
+    deltas at most once a second from the loop and at every stats(); the
+    gauges at the same flush; the serve_request_ttft_ms / _tpot_ms /
+    _stage_ms histograms observed at each request's end (a migrated
+    request skips TTFT, queue and prefill).  All tagged `engine`.
+  - spans, only while `runtime.tracing_enabled()`: a request captures
+    the trace context at submit; admission emits llm.queue, llm.prefill,
+    llm.first_token (and serve.adapter_apply, or llm.kv_import for a
+    migrated request); each decode window emits llm.decode_window per
+    traced request, timed around the window's one device -> host copy;
+    an export emits llm.kv_export, an adapter eviction
+    serve.adapter_swap.  With tracing off nothing is timed or captured.
+  - the memory ledger: start() registers a provider with an "hbm_kv" row
+    (used blocks x bytes per page of the page pool) and, with LoRA
+    banks, a "lora_banks" row; stop() unregisters it.
+  - failpoints `serve.kv_import` (kv_import's entry), `serve.adapter_swap`
+    (before an eviction changes anything), `serve.prefix_graft` (a graft
+    on the loop), `serve.prefix_demote` (before a demotion's publish) and
+    `serve.kv_export` (inside an export's pinned window); each armed error
+    takes the path an error there takes: the one call, graft, demotion
+    or export fails and the loop serves on.
 
 LLMServer, the serve deployment body, wraps one engine: the request path
 (__call__, stream), the PD pool roles, adapter page-in, the tier-2 prefix
@@ -102,6 +125,62 @@ from ray_tpu_torch.serve.runtime import ServeRuntime, resolve_tree
 from ray_tpu_torch.serve.schema import ENGINE_CONFIG_KEYS, ENGINE_ROLES
 
 _M32 = 0xFFFFFFFF
+
+# Latency-histogram bucket upper bounds in ms (the reference's).
+_MS_BUCKETS = (1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+               1000.0, 2500.0, 5000.0, 10000.0, 30000.0)
+
+
+def _engine_metrics(runtime) -> dict:
+    """The serve-LLM metrics on `runtime` (the reference's
+    `_engine_metrics`: the same names, descriptions, tag keys and
+    buckets), tagged per engine so engines sharing a registry keep their
+    own series."""
+    tk = ("engine",)
+
+    def m(kind, name, desc, tags=tk, **kw):
+        return runtime.metric(kind, name, desc, tags, **kw)
+
+    return {
+        "prefill_tokens": m("counter", "serve_llm_prefill_tokens",
+                            "Prompt tokens actually prefilled on device"),
+        "prefix_hit_tokens": m(
+            "counter", "serve_llm_prefix_hit_tokens",
+            "Prompt tokens served from the KV prefix cache"),
+        "decode_tokens": m("counter", "serve_llm_decode_tokens",
+                           "Tokens decoded"),
+        "preemptions": m("counter", "serve_llm_preemptions",
+                         "Requests preempted for KV blocks"),
+        "evictions": m("counter", "serve_llm_kv_evictions",
+                       "Cached KV blocks LRU-evicted"),
+        "completed": m("counter", "serve_llm_requests_completed",
+                       "Requests completed"),
+        "occupancy": m("gauge", "serve_llm_batch_occupancy",
+                       "Active slots / max_batch"),
+        "queue_depth": m("gauge", "serve_llm_queue_depth",
+                         "Requests waiting for a batch slot (the telemetry "
+                         "timeline's engine-queue series)"),
+        "free_blocks": m("gauge", "serve_llm_kv_free_blocks",
+                         "Free KV blocks in the pool"),
+        "hit_rate": m("gauge", "serve_llm_prefix_hit_rate",
+                      "Prefix-cache hit tokens / prompt tokens"),
+        "weight_version": m("gauge", "serve_llm_weight_version",
+                            "Policy weight version currently decoding "
+                            "(online RLHF live weight sync)"),
+        "weight_updates": m("counter", "serve_llm_weight_updates",
+                            "Live weight swaps applied between decode "
+                            "syncs"),
+        "ttft": m("histogram", "serve_request_ttft_ms",
+                  "Time to first token per request (ms)",
+                  boundaries=_MS_BUCKETS),
+        "tpot": m("histogram", "serve_request_tpot_ms",
+                  "Time per output token after the first (ms)",
+                  boundaries=_MS_BUCKETS),
+        "stage": m("histogram", "serve_request_stage_ms",
+                   "Per-request stage latency breakdown "
+                   "(queue/prefill/decode, ms)", ("engine", "stage"),
+                   boundaries=_MS_BUCKETS),
+    }
 
 
 def _buckets_for(max_len: int, smallest: int = 32) -> list[int]:
@@ -211,6 +290,11 @@ class _Request:
     model_id: str | None = None
     lora_slot: int = 0
     salt: int = 0
+    # Tracing: the (trace id, span id) context captured at submit (None
+    # when tracing was off), and the wall-clock submit and admission times.
+    trace: Any = None
+    t0_wall: float = field(default_factory=time.time)
+    admitted_wall: float = 0.0
 
     def emit(self, tok: int | None) -> None:
         if self.token_queue is not None:
@@ -238,7 +322,9 @@ class LLMEngine:
     captured windows read fixed addresses.  With `share_params=True` it
     decodes with the caller's tensors themselves (on its device): engines
     built so share one tree's memory, and their weights are read-only
-    (update_weights raises)."""
+    (update_weights raises).  `runtime` (serve/runtime.py) receives the
+    metrics, spans, memory-ledger rows and failpoint hits; the null
+    runtime records nothing."""
 
     def __init__(self, cfg, params=None, *, max_batch: int = 8,
                  max_len: int | None = None, seed: int = 0,
@@ -249,10 +335,12 @@ class LLMEngine:
                  lora_slots: int = 0, lora_rank: int = 0,
                  lora_targets: tuple | None = None,
                  share_params: bool = False,
-                 name: str = "llm", device=None):
+                 name: str = "llm", device=None,
+                 runtime: ServeRuntime | None = None):
         self.device = resolve_device(device, "LLMEngine")
         self.cfg = cfg
         self.name = name
+        self._runtime = runtime or ServeRuntime()
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq
         self.steps_per_sync = max(1, steps_per_sync)
@@ -445,6 +533,14 @@ class LLMEngine:
         self.graft_tokens = 0
         self.demote_published = 0
         self.demote_failures = 0
+        # Metrics (made at the first flush) and the counters' values at
+        # the last flush: stats() flushes from callers' threads while the
+        # loop flushes on its own cadence, so the deltas take a lock.
+        self._metrics: dict | None = None
+        self._metrics_last: dict[str, float] = {}
+        self._metrics_t = 0.0
+        self._metrics_lock = threading.Lock()
+        self._memledger_provider: str | None = None
 
     # ------------------------------------------------------------- public
     def submit(self, prompt: list[int], max_new_tokens: int = 32,
@@ -501,6 +597,8 @@ class LLMEngine:
                            token_queue=token_queue, sample_seed=seed,
                            cache_ok=_cache_ok, prefill_only=prefill_only,
                            model_id=model_id)
+            if self._runtime.tracing_enabled():
+                req.trace = self._runtime.trace_capture()
             self._waiting.put(req)
             self._wake.set()
         finally:
@@ -530,7 +628,8 @@ class LLMEngine:
         prefill had run here.  With matching engine seeds and the
         exporter's `sample_seed` the continued sample stream is the one
         an uninterrupted run draws.  The result's `tokens` include the
-        ones passed in."""
+        ones passed in.  The `serve.kv_import` failpoint fires first."""
+        self._runtime.failpoint("serve.kv_import")
         if not self.paged:
             raise ValueError("kv_import requires a paged engine")
         if not tokens:
@@ -572,6 +671,8 @@ class LLMEngine:
                        token_queue=token_queue, sample_seed=sample_seed,
                        tokens=list(tokens), import_kv=kv,
                        import_len=kv_len)
+        if self._runtime.tracing_enabled():
+            req.trace = self._runtime.trace_capture()
         self._waiting.put(req)
         self._wake.set()
         return req.future
@@ -657,7 +758,8 @@ class LLMEngine:
         in a slot no lane reads.  Re-loading a resident (model_id,
         version) is a no-op; a new version overwrites in place under a
         new KV salt.  Raises AdapterLoadError when the weights do not fit
-        or no slot can be freed."""
+        or no slot can be freed.  The `serve.adapter_swap` failpoint fires
+        before an eviction changes anything."""
         if self._lora_banks is None:
             raise AdapterLoadError(
                 "engine has no adapter slots (set lora_slots)",
@@ -715,10 +817,18 @@ class LLMEngine:
                         "every adapter slot has an in-flight request",
                         model_id=model_id, deployment=self.name,
                         reason="no_free_slot")
+                # Before the eviction: an injected fault leaves the
+                # resident set as it was.
+                self._runtime.failpoint("serve.adapter_swap")
                 _, victim = min(cands)
                 slot = self._lora_map.pop(victim)
                 del self._lora_meta[victim]
                 self.adapter_evictions += 1
+                if self._runtime.tracing_enabled():
+                    self._runtime.emit(
+                        "serve.adapter_swap", time.time(),
+                        attrs={"deployment": self.name, "slot": slot,
+                               "loaded": model_id, "evicted": victim})
             with self._dispatch_lock, torch.no_grad():
                 for t, bank in self._lora_banks.items():
                     bank["a"][:, slot].zero_()
@@ -907,8 +1017,52 @@ class LLMEngine:
             self._thread = threading.Thread(
                 target=self._loop, name="llm-engine", daemon=True)
             self._thread.start()
+            self._register_memledger_provider()
+
+    def _register_memledger_provider(self) -> None:
+        """Attach the page pool (and the LoRA banks) to the runtime's
+        memory harvest: used bytes = used pool blocks x bytes per page,
+        from the block manager's accounting; the pool's bytes are its
+        cache tensors'."""
+        if self._mgr is None:
+            return
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for t in self.cache["k"] + self.cache["v"]
+                         + [self.cache["pos"]])
+        per_page = pool_bytes // max(1, self.n_pages)
+        lora_bytes = 0
+        if self._lora_banks is not None:
+            lora_bytes = sum(t.numel() * t.element_size()
+                             for bank in self._lora_banks.values()
+                             for t in bank.values())
+        key = f"llm:{self.name}:{id(self):x}"
+
+        def rows():
+            st = self._mgr.stats()
+            used = st["n_blocks"] - st["free"]
+            out = [{"object_id": f"kvpool:{self.name}",
+                    "size": used * per_page, "tag": "hbm_kv",
+                    "tier": "hbm",
+                    "callsite": f"serve/llm.py engine {self.name}",
+                    "pool_bytes": pool_bytes, "blocks_used": used,
+                    "blocks_total": st["n_blocks"],
+                    "blocks_cached": st["cached"]}]
+            if lora_bytes:
+                out.append({"object_id": f"lorabanks:{self.name}",
+                            "size": lora_bytes, "tag": "lora_banks",
+                            "tier": "hbm",
+                            "callsite": f"serve/llm.py engine {self.name}",
+                            "slots": self.lora_slots,
+                            "rank": self.lora_rank})
+            return out
+
+        self._runtime.register_provider(key, rows)
+        self._memledger_provider = key
 
     def stop(self) -> None:
+        if self._memledger_provider is not None:
+            self._runtime.unregister_provider(self._memledger_provider)
+            self._memledger_provider = None
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
@@ -1173,6 +1327,8 @@ class LLMEngine:
             self._pending.popleft()
             req.slot = free
             req.admitted_at = time.perf_counter()
+            if req.trace is not None:
+                req.admitted_wall = time.time()
             req.cache_gen = self._cache_gen
             self._slots[free] = req
             self._temps[free] = req.temperature
@@ -1182,10 +1338,19 @@ class LLMEngine:
             return
         imports = [(s, r) for s, r in wave if r.import_kv is not None]
         wave = [(s, r) for s, r in wave if r.import_kv is None]
+        rt = self._runtime
+        traced = rt.tracing_enabled()
         for slot, req in imports:
+            t_imp0 = time.time() if traced else 0.0
+            kv_len = req.import_len
             self._apply_import(slot, req)
             if req.first_token_at is None:
                 req.first_token_at = time.perf_counter()
+            if traced and req.trace is not None:
+                rt.emit("llm.queue", req.t0_wall, req.admitted_wall,
+                        ctx=req.trace)
+                rt.emit("llm.kv_import", t_imp0, ctx=req.trace,
+                        attrs={"kv_len": kv_len, "pages": len(req.pages)})
             if self._done(req):
                 self._finish(slot)
         if not wave:
@@ -1200,12 +1365,13 @@ class LLMEngine:
         pending_waves = []
         for c0 in range(0, len(wave), self._chunk):
             chunk = wave[c0:c0 + self._chunk]
+            t_disp = time.time() if traced else 0.0
             if any(r.prefill_from > 0 for _, r in chunk):
                 nxt = self._prefill_chunk_suffix(chunk)
             else:
                 nxt = self._prefill_chunk_full(chunk)
-            pending_waves.append((chunk, nxt))
-        for chunk, nxt in pending_waves:
+            pending_waves.append((chunk, nxt, t_disp))
+        for chunk, nxt, t_disp in pending_waves:
             firsts = nxt.cpu().numpy()[:len(chunk)]
             now = time.perf_counter()
             for (slot, req), first in zip(chunk, firsts):
@@ -1215,6 +1381,32 @@ class LLMEngine:
                 req.emit(int(first))
                 if self._done(req):
                     self._finish(slot)
+            if traced:
+                self._emit_admission(chunk, t_disp, time.time())
+
+    def _emit_admission(self, chunk, t_disp: float, now_wall: float) -> None:
+        """A traced request's engine-side TTFT anatomy: queue (submit to
+        slot), the adapter apply leg, prefill (chunk dispatch to first
+        tokens on the host: chunk-mates share it) and the first-token
+        marker."""
+        rt = self._runtime
+        for _, req in chunk:
+            if req.trace is None:
+                continue
+            rt.emit("llm.queue", req.t0_wall, req.admitted_wall,
+                    ctx=req.trace)
+            if req.model_id is not None:
+                rt.emit("serve.adapter_apply", req.admitted_wall,
+                        req.admitted_wall, ctx=req.trace,
+                        attrs={"model_id": req.model_id,
+                               "slot": req.lora_slot})
+            rt.emit("llm.prefill", t_disp, now_wall, ctx=req.trace,
+                    attrs={"prompt_tokens": len(req.prompt),
+                           "prefill_from": req.prefill_from,
+                           "cached_tokens": req.prefill_from})
+            rt.emit("llm.first_token", now_wall, now_wall, ctx=req.trace,
+                    attrs={"ttft_ms": round(
+                        (req.first_token_at - req.submitted_at) * 1000, 1)})
 
     def _wave_arrays(self, chunk, lens):
         """Per-row host arrays of a width-bucketed wave (rows past the
@@ -1372,6 +1564,8 @@ class LLMEngine:
         try:
             kv_len = len(req.prompt) + len(req.tokens) - 1
             ids = self._mgr.export_blocks(req.pages, kv_len)
+            # A fault inside the pinned window: the pins must drop.
+            self._runtime.failpoint("serve.kv_export")
             host, ev = self._to_host(self._gather_kv(ids), len(ids))
         except Exception as e:  # noqa: BLE001 - fail this request only
             if ids is not None:
@@ -1412,6 +1606,8 @@ class LLMEngine:
         every position whose KV is written (the newest token's is not:
         the importer computes it in its first decode step); resolves the
         future and drops the export pins."""
+        traced = req.trace is not None and self._runtime.tracing_enabled()
+        t_exp0 = time.time() if traced else 0.0
         try:
             kv = self._host_result(host, ev)
         except Exception as e:  # noqa: BLE001 - fail this request only
@@ -1422,6 +1618,11 @@ class LLMEngine:
             return
         self._mgr.release(ids)
         self.kv_exports += 1
+        if traced:
+            # The device -> host fetch of one migration.
+            self._runtime.emit("llm.kv_export", t_exp0, ctx=req.trace,
+                               attrs={"bytes": kv.nbytes, "kv_len": kv_len,
+                                      "pages": kv.shape[2]})
         now = time.perf_counter()
         req.emit(None)
         if not req.future.done():
@@ -1436,13 +1637,15 @@ class LLMEngine:
     # -------------------------------------------------------- prefix store
     def _apply_grafts(self) -> None:
         """Loop half of kv_graft: allocate, scatter, commit, release.  A
-        failed graft fails its own future only."""
+        failed graft (the `serve.prefix_graft` failpoint, a scatter
+        error) fails its own future only."""
         while True:
             try:
                 tokens, kv, n, wv, salt, fut = self._graft_q.get_nowait()
             except queue.Empty:
                 return
             try:
+                self._runtime.failpoint("serve.prefix_graft")
                 if not self._prefix_cache:
                     out = {"grafted": 0, "reason": "no_prefix_cache"}
                 elif wv is not None and wv != self.weight_version:
@@ -1525,6 +1728,9 @@ class LLMEngine:
             kv = None
         if kv is not None and gen == self._cache_gen:
             try:
+                # Between the KV gather and the store registration: the
+                # pins must still drop, and tier 1 keeps the leaf.
+                self._runtime.failpoint("serve.prefix_demote")
                 published = bool(self._demote_cb(dict(
                     tokens=c["tokens"], kv=kv, hashes=c["hashes"],
                     depth=c["depth"], page=self.page, weight_version=wv,
@@ -1591,28 +1797,76 @@ class LLMEngine:
                 "total_s": now - req.submitted_at,
             })
 
+    def _metrics_table(self) -> dict:
+        if self._metrics is None:
+            self._metrics = _engine_metrics(self._runtime)
+        return self._metrics
+
     def _observe_done(self, req: _Request, now: float) -> None:
-        """Record a finished request's stage latencies in the SLO window,
-        as the reference does (its Prometheus histograms are not ported).
-        A migrated request skips TTFT, queue and prefill (its first token
-        came from the exporting engine); a prefill-only export skips
-        decode."""
+        """Record a finished request's latencies in the TTFT / TPOT /
+        stage histograms and the SLO window.  A migrated request skips
+        TTFT, queue and prefill (its first token came from the exporting
+        engine, which observed it); a prefill-only export skips decode."""
         ft = req.first_token_at
         if ft is None:
             return
+        m = self._metrics_table()
+        tags = {"engine": self.name}
         imported = req.import_len > 0
         if not imported:
+            m["ttft"].observe((ft - req.submitted_at) * 1000.0, tags)
             self._slo_window.observe(
                 "ttft_ms", (ft - req.submitted_at) * 1000.0)
+        n = len(req.tokens)
+        if n > 1 and now > ft:
+            m["tpot"].observe((now - ft) * 1000.0 / (n - 1), tags)
         if req.admitted_at:
+            st = m["stage"]
             if not imported:
-                self._slo_window.observe(
-                    "queue_ms",
-                    (req.admitted_at - req.submitted_at) * 1000.0)
-                self._slo_window.observe(
-                    "prefill_ms", (ft - req.admitted_at) * 1000.0)
+                queue_ms = (req.admitted_at - req.submitted_at) * 1000.0
+                prefill_ms = (ft - req.admitted_at) * 1000.0
+                st.observe(queue_ms, {**tags, "stage": "queue"})
+                st.observe(prefill_ms, {**tags, "stage": "prefill"})
+                self._slo_window.observe("queue_ms", queue_ms)
+                self._slo_window.observe("prefill_ms", prefill_ms)
             if not req.prefill_only:
+                st.observe((now - ft) * 1000.0, {**tags, "stage": "decode"})
                 self._slo_window.observe("decode_ms", (now - ft) * 1000.0)
+
+    def _flush_metrics(self, force: bool = False) -> None:
+        """Export the engine's counters as metrics: deltas against the
+        last flush, at most once a second unless forced (stats()), and
+        the gauges."""
+        now = time.monotonic()
+        if not force and now - self._metrics_t < 1.0:
+            return
+        m = self._metrics_table()
+        tags = {"engine": self.name}
+        cur = {"prefill_tokens": self.prefill_tokens,
+               "decode_tokens": self.decode_tokens,
+               "preemptions": self.preemptions,
+               "completed": self.completed,
+               "weight_updates": self.weight_updates}
+        if self._mgr is not None:
+            cur["prefix_hit_tokens"] = self._mgr.hit_tokens
+            cur["evictions"] = self._mgr.evictions
+        with self._metrics_lock:
+            self._metrics_t = now
+            for key, val in cur.items():
+                delta = val - self._metrics_last.get(key, 0)
+                if delta > 0:
+                    m[key].inc(delta, tags)
+                self._metrics_last[key] = val
+        m["occupancy"].set(
+            sum(s is not None for s in self._slots) / self.max_batch, tags)
+        m["queue_depth"].set(self._waiting.qsize() + len(self._pending),
+                             tags)
+        m["weight_version"].set(float(self.weight_version), tags)
+        if self._mgr is not None:
+            m["free_blocks"].set(self._mgr.free_count(), tags)
+            seen = self._mgr.hit_tokens + self.prefill_tokens
+            m["hit_rate"].set(self._mgr.hit_tokens / seen if seen else 0.0,
+                              tags)
 
     def _preempt_slot(self, slot: int) -> None:
         """Evict a running request: its blocks go to the prefix cache and
@@ -1712,11 +1966,25 @@ class LLMEngine:
             k_win = self._k_live
             active = self._ensure_decode_blocks(k_win)
             self._maybe_demote()
+            self._flush_metrics()
             if not active:
                 self._wake.wait(timeout=0.002 if self._pending else 0.05)
                 self._wake.clear()
                 continue
+            traced = [self._slots[i] for i in active
+                      if self._slots[i].trace is not None] \
+                if self._runtime.tracing_enabled() else ()
+            t_win0 = time.time() if traced else 0.0
             seq = self._decode_window(active, k_win).cpu().numpy()  # 1 sync
+            if traced:
+                # One span per window per traced co-resident request,
+                # from dispatch to the tokens on the host.
+                t_win1 = time.time()
+                for r in traced:
+                    self._runtime.emit(
+                        "llm.decode_window", t_win0, t_win1, ctx=r.trace,
+                        attrs={"steps": k_win,
+                               "weight_version": self.weight_version})
             for i in active:
                 req = self._slots[i]
                 if req is None:
@@ -1803,6 +2071,7 @@ class LLMEngine:
                        prefix_hit_tokens=kv["hit_tokens"],
                        evictions=kv["evictions"],
                        cow_copies=kv["cow_copies"])
+        self._flush_metrics(force=True)
         return out
 
 
@@ -1842,10 +2111,13 @@ class LLMServer:
     only an in-process directory (`lora_directory`, `prefix_store`'s
     "directory") or return their defaults.
 
-    Not ported: the reference's engine metrics, tracing spans,
-    memory-ledger tags and failpoints (serve.adapter_load and the spans of
-    the adapter load, shed/restore and KV put and pull; ROADMAP.md queue 1
-    item 1c); tests inject faults through fakes instead."""
+    **Observability.**  The runtime also receives the engine's metrics,
+    spans and memory rows (the engine is built with it), and the server's
+    own: the spans serve.adapter_load (under the caller's trace context),
+    serve.shed / serve.restore, serve.kv_put (with the memory tag
+    "kv_export") and serve.kv_pull, and the `serve.adapter_load`
+    failpoint at the page-in's entry, whose error rejects the request
+    with AdapterLoadError(reason="load_failed")."""
 
     # Adapter requests re-page and resubmit this many times in all when a
     # concurrent tenant's load evicts their adapter between the page-in
@@ -1939,7 +2211,7 @@ class LLMServer:
 
     def _new_engine(self, kwargs: dict) -> LLMEngine:
         return LLMEngine(self._cfg, self._params, device=self._device,
-                         **kwargs)
+                         runtime=self._runtime, **kwargs)
 
     def _install_prefix_store(self) -> None:
         """(Re)attach the prefix-store client and demotion hook to the
@@ -1984,15 +2256,25 @@ class LLMServer:
             return None
         return mid
 
-    def _ensure_adapter_sync(self, model_id: str) -> None:
+    def _ensure_adapter_sync(self, model_id: str, trace_ctx=None) -> None:
         """Make `model_id` device-resident before submit (blocking;
         callers keep it off the event loop).  Fast path: resident at the
         version the directory reported within RAY_TPU_LORA_TTL_S seconds.
         Slow path: one in-flight load per model_id (racing requests wait
         on its future): directory lookup, pull through the runtime,
-        engine.load_adapter.  Every failure surfaces as AdapterLoadError
-        before the request holds a batch slot."""
+        engine.load_adapter, the serve.adapter_load span under
+        `trace_ctx`.  Every failure surfaces as AdapterLoadError before
+        the request holds a batch slot; the `serve.adapter_load`
+        failpoint fires at entry."""
         eng = self.engine
+        try:
+            self._runtime.failpoint("serve.adapter_load")
+        except Exception as e:  # noqa: BLE001 - typed reject
+            self.adapter_load_errors += 1
+            raise AdapterLoadError(
+                f"adapter load faulted: {type(e).__name__}: {e}",
+                model_id=model_id, deployment=eng.name,
+                reason="load_failed") from e
         if eng._lora_banks is None:
             raise AdapterLoadError(
                 "deployment has no adapter slots (set engine_config "
@@ -2014,6 +2296,7 @@ class LLMServer:
             fut.result(timeout=120.0)   # re-raises the owner's error
             return
         try:
+            t0 = time.time()
             try:
                 if self._lora_client is None:
                     self._lora_client = lora_mod.LoraClient(
@@ -2029,6 +2312,14 @@ class LLMServer:
                     adapter = lora_mod.resolve_entry(entry, self._runtime)
                     eng.load_adapter(model_id, adapter,
                                      version=entry["version"])
+                    if self._runtime.tracing_enabled():
+                        self._runtime.emit(
+                            "serve.adapter_load", t0, time.time(),
+                            ctx=trace_ctx,
+                            attrs={"model_id": model_id,
+                                   "deployment": eng.name,
+                                   "version": entry["version"],
+                                   "bytes": entry.get("nbytes", 0)})
                 eng.adapter_touch(model_id)
                 self._lora_seen[model_id] = (
                     time.monotonic() + self._lora_ttl, entry["version"])
@@ -2085,9 +2376,9 @@ class LLMServer:
     # ------------------------------------------------- overload ladder
     def _update_pressure(self) -> int:
         """Feed the engine's queue depth to the hysteresis tracker; on a
-        level change apply or restore the sync-window knob.  Kill switch
-        RAY_TPU_SERVE_DEGRADE=0 pins level 0 (restoring a shrunk
-        window)."""
+        level change apply or restore the sync-window knob and emit
+        serve.shed or serve.restore.  Kill switch RAY_TPU_SERVE_DEGRADE=0
+        pins level 0 (restoring a shrunk window)."""
         eng = self.engine
         if not slo.degrade_on():
             if self._overload.level:
@@ -2103,6 +2394,13 @@ class LLMServer:
                 self._sheds += 1
             else:
                 self._restores += 1
+            if self._runtime.tracing_enabled():
+                self._runtime.emit(
+                    "serve.shed" if level > prev else "serve.restore",
+                    time.time(),
+                    attrs={"deployment": eng.name, "level": level,
+                           "from": prev, "depth": depth,
+                           "sync_window": eng._k_live})
         return level
 
     # --------------------------------------------------- prefill/decode
@@ -2164,10 +2462,18 @@ class LLMServer:
             return {"tokens": pre["tokens"], "ttft_s": pre["ttft_s"],
                     "total_s": time.perf_counter() - t_start}
         kv = exp["kv"]
+        rt = self._runtime
+        # Executor threads do not inherit the handler's context: carry the
+        # request's trace into the put.
+        trace_ctx = rt.trace_capture() if rt.tracing_enabled() else None
 
         def _put():
             t0 = time.perf_counter()
-            r = self._runtime.put(kv)
+            with rt.span("serve.kv_put", attrs={"bytes": kv.nbytes},
+                         ctx=trace_ctx), \
+                    rt.memory_tag("kv_export",
+                                  label="serve/llm.py kv_export"):
+                r = rt.put(kv)
             return r, (time.perf_counter() - t0) * 1000.0
 
         # A put may block on allocation: keep it off the event loop.
@@ -2210,11 +2516,13 @@ class LLMServer:
         import it into this engine's pool and run the decode phase to
         completion."""
         t0 = time.perf_counter()
-        blob = kv_ref
-        if self._runtime.is_ref(blob):
-            blob = self._runtime.get(blob)
-        blob = as_tensor(blob)
-        nbytes = blob.nbytes
+        with self._runtime.span("serve.kv_pull") as sp:
+            blob = kv_ref
+            if self._runtime.is_ref(blob):
+                blob = self._runtime.get(blob)
+            blob = as_tensor(blob)
+            nbytes = blob.nbytes
+            sp["bytes"] = nbytes
         pull_ms = (time.perf_counter() - t0) * 1000.0
         fut = self.engine.kv_import(
             meta["prompt"], meta["tokens"], blob,
@@ -2276,7 +2584,8 @@ class LLMServer:
                 # Page-in before the graft lookup: the store keys are
                 # salted per (adapter, version).
                 await asyncio.get_running_loop().run_in_executor(
-                    None, self._ensure_adapter_sync, model_id)
+                    None, self._ensure_adapter_sync, model_id,
+                    self._runtime.trace_current())
             if level < 1 and attempt == 0:
                 # Overloaded replicas skip the store entirely.
                 await self._maybe_graft_async(request)
@@ -2311,7 +2620,9 @@ class LLMServer:
         attempts = self._LORA_ADMIT_RETRIES if model_id is not None else 1
         for attempt in range(attempts):
             if model_id is not None:
-                self._ensure_adapter_sync(model_id)
+                # stream() runs on a pool thread: blocking is fine.
+                self._ensure_adapter_sync(model_id,
+                                          self._runtime.trace_current())
             if level < 1 and attempt == 0:
                 self._maybe_graft_sync(request)
             q: queue.Queue = queue.Queue()

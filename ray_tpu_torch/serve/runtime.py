@@ -31,22 +31,46 @@ the same object:
   `deregister_collective_group`, `destroy_collective_group` and
   `broadcast_async` (a waitable with `.wait(timeout)`), as
   `ray_tpu.collective` has them;
-- two hooks: `failpoint(site)` and `span(name, attrs)`.
+- the failpoint hook `failpoint(site)`.
+
+The serve engine, the server and the rollout workers report through three
+more faces, with the call shapes of the reference's `ray_tpu.tracing`,
+`ray_tpu.utils.metrics` and `ray_tpu.memledger`:
+
+- tracing: `tracing_enabled()` (read per call, the reference's live
+  `tracing.ENABLED`), `trace_capture()` and `trace_current()` (the
+  (trace id, span id) context a request carries, or None), `emit(name,
+  t0, t1=None, ctx=None, attrs=None)` (a span recorded after the fact, on
+  the wall clock) and `span(name, attrs=None, ctx=None)` (a span over a
+  `with` block, yielding its mutable attrs);
+- metrics: `metric(kind, name, description, tag_keys, boundaries=None)`,
+  the reference's idempotent `get_or_create` of a "counter", "gauge" or
+  "histogram", whose `inc` / `set` / `observe(value, tags)` record;
+- the memory ledger: `register_provider(key, rows_fn)`,
+  `unregister_provider(key)` and `memory_tag(kind, label)`, a context
+  that tags what the block creates (the reference's `memledger.tag`).
 
 The null runtime makes no actors and forms no groups: those calls raise,
-naming `LocalRuntime`; its hooks do nothing.  `LocalRuntime` is the
-runtime of one process, as `LocalHandle` is an in-process deployment
-handle: each actor is built in the caller's process and runs its methods
-on a thread pool of its own, `kill` makes every pending and later call
-raise `ActorDiedError`, and a collective group is an in-process
-rendezvous whose every wait has a deadline.
+naming `LocalRuntime`.  Its hooks record nothing: `tracing_enabled()` is
+False, so callers skip every capture and timestamp; its metrics are
+`NULL_METRIC`.  `LocalRuntime` is the runtime of one process, as
+`LocalHandle` is an in-process deployment handle: each actor is built in
+the caller's process and runs its methods on a thread pool of its own,
+`kill` makes every pending and later call raise `ActorDiedError`, a
+collective group is an in-process rendezvous whose every wait has a
+deadline, and a `Recorder` holds its spans, metrics and memory providers
+(the counterpart of the reference's process-local span ring and metric
+registry).
 """
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
 import contextlib
+import contextvars
 import inspect
+import itertools
+import os
 import re
 import threading
 import time
@@ -183,11 +207,69 @@ class ServeRuntime:
     # ------------------------------------------------------------ hooks
     def failpoint(self, site: str) -> None:
         """Fault-injection site `site` (`rl.rollout_step`,
-        `rl.weight_sync`); an armed site raises or kills its actor."""
+        `rl.weight_sync`, the six `serve.*` sites); an armed site raises
+        or kills its actor."""
 
-    def span(self, name: str, attrs: dict | None = None):
-        """A tracing span over the `with` block."""
+    # ------------------------------------------------------ tracing face
+    def tracing_enabled(self) -> bool:
+        """Whether spans are recorded now (callers read it per call and
+        skip every capture and timestamp when it is False)."""
+        return False
+
+    def trace_capture(self):
+        """The current (trace id, span id) context for a request to carry
+        to another thread, or None."""
+        return None
+
+    def trace_current(self):
+        """The current (trace id, span id) context, or None."""
+        return None
+
+    def emit(self, name: str, t0: float, t1: float | None = None,
+             ctx=None, attrs: dict | None = None) -> None:
+        """Record one finished span from wall-clock `t0` to `t1` (now when
+        None), under context `ctx` (the current one when None)."""
+
+    def span(self, name: str, attrs: dict | None = None, ctx=None):
+        """A tracing span over the `with` block, under `ctx` (the current
+        context when None); yields the span's mutable attrs."""
         return contextlib.nullcontext({})
+
+    # ------------------------------------------------------ metrics face
+    def metric(self, kind: str, name: str, description: str = "",
+               tag_keys: tuple = (), boundaries=None):
+        """The metric `name` of `kind` ("counter", "gauge" or
+        "histogram"), created at the first call and returned after that;
+        `inc(value, tags)`, `set(value, tags)`, `observe(value, tags)`."""
+        return NULL_METRIC
+
+    # ------------------------------------------------ memory-ledger face
+    def register_provider(self, key: str, rows_fn) -> None:
+        """Attach `rows_fn() -> [row dict]` (memory the object plane does
+        not hold, such as an engine's KV pool) to the memory harvest."""
+
+    def unregister_provider(self, key: str) -> None:
+        """Detach the provider registered under `key`."""
+
+    def memory_tag(self, kind: str, label: str | None = None):
+        """A context that tags the objects the block creates."""
+        return contextlib.nullcontext()
+
+
+class _NullMetric:
+    """The null runtime's metric: records nothing."""
+
+    def inc(self, value: float = 1.0, tags: dict | None = None) -> None:
+        pass
+
+    def set(self, value: float, tags: dict | None = None) -> None:
+        pass
+
+    def observe(self, value: float, tags: dict | None = None) -> None:
+        pass
+
+
+NULL_METRIC = _NullMetric()
 
 
 class LocalResponse:
@@ -369,6 +451,239 @@ class _Received:
         return self._out
 
 
+# ------------------------------------------------------------- Recorder
+TRACE_ENV = "RAY_TPU_TRACE"          # the reference's recorder kill switch
+SPAN_CAPACITY = 4096
+
+
+def _attrs(attrs: dict | None) -> dict:
+    """Span attrs as plain values (the reference's `_clean_attrs`)."""
+    out = {}
+    for k, v in (attrs or {}).items():
+        ok = v is None or isinstance(v, (bool, int, float, str))
+        out[str(k)] = v if ok else str(v)
+    return out
+
+
+class _Metric:
+    """One metric of a Recorder: values per tag tuple, the reference's
+    `ray_tpu.utils.metrics.Metric` semantics."""
+
+    kind = "metric"
+
+    def __init__(self, name: str, description: str, tag_keys: tuple):
+        self.name = name
+        self.description = description
+        self.tag_keys = tuple(tag_keys)
+        self._values: dict[tuple, float] = {}
+        self._lock = threading.Lock()
+
+    def _key(self, tags: dict | None) -> tuple:
+        unknown = set(tags or {}) - set(self.tag_keys)
+        if unknown:
+            raise ValueError(f"unknown tag keys {unknown}; declared "
+                             f"{self.tag_keys}")
+        return tuple((tags or {}).get(k, "") for k in self.tag_keys)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"name": self.name, "description": self.description,
+                    "type": self.kind, "tag_keys": list(self.tag_keys),
+                    "values": [{"tags": dict(zip(self.tag_keys, k)),
+                                "value": v}
+                               for k, v in self._values.items()]}
+
+
+class _Counter(_Metric):
+    kind = "counter"
+
+    def inc(self, value: float = 1.0, tags: dict | None = None) -> None:
+        if value < 0:
+            raise ValueError("counters only increase")
+        k = self._key(tags)
+        with self._lock:
+            self._values[k] = self._values.get(k, 0.0) + value
+
+
+class _Gauge(_Metric):
+    kind = "gauge"
+
+    def set(self, value: float, tags: dict | None = None) -> None:
+        k = self._key(tags)
+        with self._lock:
+            self._values[k] = float(value)
+
+
+class _Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name, description, tag_keys, boundaries=None):
+        super().__init__(name, description, tag_keys)
+        self.boundaries = sorted(boundaries or
+                                 [0.001, 0.01, 0.1, 1.0, 10.0, 100.0])
+        self._counts: dict[tuple, list[int]] = {}
+
+    def observe(self, value: float, tags: dict | None = None) -> None:
+        k = self._key(tags)
+        with self._lock:
+            counts = self._counts.setdefault(
+                k, [0] * (len(self.boundaries) + 1))
+            i = 0
+            while i < len(self.boundaries) and value > self.boundaries[i]:
+                i += 1
+            counts[i] += 1
+            # As the reference's snapshot: "value" is the running sum.
+            self._values[k] = self._values.get(k, 0.0) + value
+
+    def snapshot(self) -> dict:
+        out = super().snapshot()
+        with self._lock:
+            out["boundaries"] = list(self.boundaries)
+            out["counts"] = [{"tags": dict(zip(self.tag_keys, k)),
+                              "counts": list(c)}
+                             for k, c in self._counts.items()]
+        return out
+
+
+_METRIC_KINDS = {"counter": _Counter, "gauge": _Gauge,
+                 "histogram": _Histogram}
+
+
+class Recorder:
+    """One process's spans, metrics and memory providers: a bounded span
+    ring (SPAN_CAPACITY records, the reference's default; older ones are
+    overwritten) with a snapshot by trace id, a metric registry with a
+    snapshot, the providers' rows, and an on/off switch for spans
+    (`set_enabled`; on unless RAY_TPU_TRACE=0, as the reference's
+    recorder).  Metrics and providers record whether spans are on or not,
+    as in the reference.  Span records have the reference's keys: "tid",
+    "sid", "par", "name", "t0", "t1" (wall clock) and "attrs"."""
+
+    def __init__(self):
+        self.enabled = os.environ.get(TRACE_ENV, "1") not in (
+            "0", "false", "False", "")
+        self._buf: list = [None] * SPAN_CAPACITY
+        self._cursor = itertools.count()
+        self._ids = itertools.count(1)
+        self._ctx = contextvars.ContextVar(f"recorder_ctx_{id(self):x}",
+                                           default=None)
+        self._lock = threading.Lock()
+        self._metrics: dict[str, _Metric] = {}
+        self._providers: dict = {}
+        self._tags: dict[tuple, int] = {}
+
+    # -------------------------------------------------------------- spans
+    def set_enabled(self, on: bool) -> None:
+        self.enabled = bool(on)
+
+    def _new_id(self) -> str:
+        return f"{os.getpid() & 0xFFFFFFFF:08x}{next(self._ids):08x}"
+
+    def _append(self, rec: dict) -> None:
+        self._buf[next(self._cursor) % SPAN_CAPACITY] = rec
+
+    def current(self):
+        return self._ctx.get()
+
+    def emit(self, name: str, t0: float, t1: float | None = None,
+             ctx=None, attrs: dict | None = None) -> None:
+        if not self.enabled:
+            return
+        c = ctx if ctx is not None else self._ctx.get()
+        tid, par = c if c is not None else (self._new_id(), "")
+        self._append({"tid": tid, "sid": self._new_id(), "par": par or "",
+                      "name": name, "t0": t0,
+                      "t1": time.time() if t1 is None else t1,
+                      "attrs": _attrs(attrs)})
+
+    @contextlib.contextmanager
+    def span(self, name: str, attrs: dict | None = None, ctx=None):
+        if not self.enabled:
+            yield {}
+            return
+        parent = ctx if ctx is not None else self._ctx.get()
+        sid = self._new_id()
+        tid, par = parent if parent is not None else (self._new_id(), "")
+        token = self._ctx.set((tid, sid))
+        live = dict(attrs or {})
+        t0 = time.time()
+        try:
+            yield live
+        except BaseException as e:
+            live["error"] = type(e).__name__
+            raise
+        finally:
+            self._ctx.reset(token)
+            self._append({"tid": tid, "sid": sid, "par": par, "name": name,
+                          "t0": t0, "t1": time.time(),
+                          "attrs": _attrs(live)})
+
+    def spans(self, trace_id: str | None = None) -> list[dict]:
+        """The buffered spans (of one trace when given), in ring order:
+        the order they were recorded until the ring wraps."""
+        return [r for r in list(self._buf) if r is not None
+                and (trace_id is None or r["tid"] == trace_id)]
+
+    # ------------------------------------------------------------ metrics
+    def metric(self, kind: str, name: str, description: str = "",
+               tag_keys: tuple = (), boundaries=None) -> _Metric:
+        cls = _METRIC_KINDS.get(kind)
+        if cls is None:
+            raise ValueError(f"metric kind {kind!r}: want one of "
+                             f"{sorted(_METRIC_KINDS)}")
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = cls(name, description, tag_keys) if cls is not \
+                    _Histogram else cls(name, description, tag_keys,
+                                        boundaries)
+                self._metrics[name] = m
+        if type(m) is not cls:
+            raise TypeError(f"metric {name!r} already registered as "
+                            f"{m.kind}, requested {kind}")
+        return m
+
+    def metrics(self) -> dict[str, dict]:
+        """Every metric's snapshot, by name."""
+        with self._lock:
+            ms = list(self._metrics.values())
+        return {m.name: m.snapshot() for m in ms}
+
+    # ------------------------------------------------------ memory ledger
+    def register_provider(self, key: str, rows_fn) -> None:
+        with self._lock:
+            self._providers[key] = rows_fn
+
+    def unregister_provider(self, key: str) -> None:
+        with self._lock:
+            self._providers.pop(key, None)
+
+    def memory_rows(self) -> list[dict]:
+        """Every provider's rows, each with its "provider" key (a provider
+        that raises gives none, as in the reference's harvest)."""
+        with self._lock:
+            providers = list(self._providers.items())
+        out = []
+        for key, fn in providers:
+            try:
+                out += [{**row, "provider": key} for row in fn()]
+            except Exception:  # noqa: BLE001 - one provider, not the harvest
+                pass
+        return out
+
+    @contextlib.contextmanager
+    def memory_tag(self, kind: str, label: str | None = None):
+        """Counts the blocks entered per (kind, label); the process has no
+        object plane of its own to tag."""
+        with self._lock:
+            self._tags[(kind, label)] = self._tags.get((kind, label), 0) + 1
+        yield
+
+    def memory_tags(self) -> dict[tuple, int]:
+        with self._lock:
+            return dict(self._tags)
+
+
 _FAILPOINT = re.compile(r"^(?:nth:(\d+)\+)?(crash|raise)$")
 
 
@@ -393,9 +708,14 @@ class LocalRuntime(ServeRuntime):
     Failpoints: `arm(site, "nth:N+crash" | "nth:N+raise", actor=None)`
     fires at the site's Nth hit (by `actor` only, if given) and disarms:
     `crash` kills the actor the site runs in and raises ActorDiedError in
-    it, `raise` raises RuntimeError."""
+    it, `raise` raises RuntimeError.
+
+    Tracing, metrics and the memory ledger go to `self.recorder` (a
+    `Recorder`; `set_enabled(False)` stops the spans).  Spans of actor
+    calls land in the same buffer: the process is one."""
 
     def __init__(self):
+        self.recorder = Recorder()
         self._lock = threading.Lock()
         self._tls = threading.local()
         self._actors: list[_Actor] = []
@@ -515,6 +835,41 @@ class LocalRuntime(ServeRuntime):
             stopping, self._stopping = self._stopping, []
         for t in stopping:
             t.join(max(0.0, deadline - time.monotonic()))
+
+    # --------------------------------------- tracing, metrics and memory
+    def set_enabled(self, on: bool) -> None:
+        """Turn span recording on or off (the reference's
+        `tracing.set_enabled`)."""
+        self.recorder.set_enabled(on)
+
+    def tracing_enabled(self) -> bool:
+        return self.recorder.enabled
+
+    def trace_capture(self):
+        return self.recorder.current()
+
+    def trace_current(self):
+        return self.recorder.current()
+
+    def emit(self, name, t0, t1=None, ctx=None, attrs=None) -> None:
+        self.recorder.emit(name, t0, t1, ctx, attrs)
+
+    def span(self, name, attrs=None, ctx=None):
+        return self.recorder.span(name, attrs, ctx)
+
+    def metric(self, kind, name, description="", tag_keys=(),
+               boundaries=None):
+        return self.recorder.metric(kind, name, description, tag_keys,
+                                    boundaries)
+
+    def register_provider(self, key, rows_fn) -> None:
+        self.recorder.register_provider(key, rows_fn)
+
+    def unregister_provider(self, key) -> None:
+        self.recorder.unregister_provider(key)
+
+    def memory_tag(self, kind, label=None):
+        return self.recorder.memory_tag(kind, label)
 
     # -------------------------------------------------------- failpoints
     def arm(self, site: str, action: str, actor=None) -> None:

@@ -347,8 +347,8 @@ def test_config_validation(small):
 def test_actor_topology_not_implemented(small):
     """The actor topology needs a runtime that makes actors: without one
     (none, or the null ServeRuntime) the trainer raises ValueError naming
-    LocalRuntime.  A mesh learner still raises, pointing at LearnerGroup
-    (queue 1 item 7)."""
+    LocalRuntime.  A mesh that is not a DeviceMesh raises TypeError naming
+    what to pass (tests/test_torch_mesh_learner.py runs real meshes)."""
     from ray_tpu_torch.rl.rlhf import GRPOLearner, RLHFTrainer
     from ray_tpu_torch.serve.runtime import ServeRuntime
 
@@ -357,7 +357,7 @@ def test_actor_topology_not_implemented(small):
                dict(num_rollout_workers=1, runtime=ServeRuntime())):
         with pytest.raises(ValueError, match="LocalRuntime"):
             RLHFTrainer(_port_cfg(small, **kw))
-    with pytest.raises(NotImplementedError, match="LearnerGroup"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         GRPOLearner(_port_cfg(small), mesh=object())
 
 

@@ -6,10 +6,12 @@ tests: the port imports nothing of ray_tpu).
 ServeRuntime`: the object plane (`ray_tpu.put` / `get`, `ObjectRef`),
 serve (`get_deployment_handle`, the replica context, the serve
 controller actor), actors (`ray_tpu.remote`, `ray_tpu.kill`), the
-collective face (`ray_tpu.collective`, backend "object_store") and the
-two hooks (`ray_tpu._private.failpoints`, `ray_tpu.tracing.span`).  It
-holds no state, so it pickles into actors and replicas, which import
-this module by name (a worker gets the driver's sys.path).
+collective face (`ray_tpu.collective`, backend "object_store"), the
+failpoint hook (`ray_tpu._private.failpoints`), the tracing face
+(`ray_tpu.tracing`), the metrics face (`ray_tpu.utils.metrics`) and the
+memory-ledger face (`ray_tpu.memledger`).  It holds no state, so it
+pickles into actors and replicas, which import this module by name (a
+worker gets the driver's sys.path).
 
 Import it from here; do not define a second binding."""
 from __future__ import annotations
@@ -105,7 +107,54 @@ class RayTpuRuntime(ServeRuntime):
         if failpoints.ACTIVE:
             failpoints.fire(site)
 
-    def span(self, name: str, attrs: dict | None = None):
+    # ---------------------------------------------------------- tracing
+    def tracing_enabled(self) -> bool:
         from ray_tpu import tracing
 
-        return tracing.span(name, attrs=attrs)
+        return tracing.ENABLED
+
+    def trace_capture(self):
+        from ray_tpu import tracing
+
+        return tracing.capture()
+
+    def trace_current(self):
+        from ray_tpu import tracing
+
+        return tracing.current()
+
+    def emit(self, name, t0, t1=None, ctx=None, attrs=None) -> None:
+        from ray_tpu import tracing
+
+        tracing.emit(name, t0, t1, ctx=ctx, attrs=attrs)
+
+    def span(self, name: str, attrs: dict | None = None, ctx=None):
+        from ray_tpu import tracing
+
+        return tracing.span(name, attrs=attrs, ctx=ctx)
+
+    # ---------------------------------------------------------- metrics
+    def metric(self, kind, name, description="", tag_keys=(),
+               boundaries=None):
+        from ray_tpu.utils import metrics as um
+
+        cls = {"counter": um.Counter, "gauge": um.Gauge,
+               "histogram": um.Histogram}[kind]
+        kw = {"boundaries": boundaries} if kind == "histogram" else {}
+        return um.get_or_create(cls, name, description, tag_keys, **kw)
+
+    # ---------------------------------------------------- memory ledger
+    def register_provider(self, key, rows_fn) -> None:
+        from ray_tpu import memledger
+
+        memledger.register_provider(key, rows_fn)
+
+    def unregister_provider(self, key) -> None:
+        from ray_tpu import memledger
+
+        memledger.unregister_provider(key)
+
+    def memory_tag(self, kind, label=None):
+        from ray_tpu import memledger
+
+        return memledger.tag(kind, label=label)
