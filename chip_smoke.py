@@ -356,6 +356,35 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  torch.profiler (kernel launches, device busy share as the
                  union of device intervals over wall time).  The RL loops
                  launch none of the four kernels.
+  20. cluster_core -- the port's own runtime (`ray_tpu_torch.init()`:
+                 controller, node agent, plain workers and the device
+                 worker, processes of their own; no JAX, ray_tpu, zmq,
+                 msgpack, cloudpickle or psutil) on the card: the
+                 resources it detects (GPU 1.0, from the /dev/nvidia<N>
+                 nodes it may open), the
+                 processes' pids, a plain task that sees no CUDA device
+                 (CUDA_VISIBLE_DEVICES ""), two num_gpus=1 actors one
+                 after the other in one device worker that reports
+                 get_gpu_ids() == [0], and a 64 MB bf16 CUDA tensor put by
+                 the driver, got in the device worker on cuda, returned
+                 and equal bit for bit.  Init, first-task and device-worker
+                 first-call times, put/get GB/s, each process's memory.
+  21. cluster_rollout_350m -- an LLMRolloutWorker at rlhf_350m's settings
+                 (bench-350m, bf16, two 384-token prompts, groups of 8, 64
+                 new tokens, engine max_batch 16, page 64, K 4) as a
+                 num_gpus=1 actor whose params are one put, against the
+                 same worker in process from the same params and seeds:
+                 two rollouts each, tokens identical, and the paged-decode
+                 and flash-forward launches counted inside the device
+                 worker (zeroed and read by remote calls) equal to the
+                 in-process counts.  Rollout seconds and completion
+                 tokens/s of both.
+  22. cluster_rl_cartpole -- PPO at rl_algos_cartpole's settings through
+                 ClusterRuntime (env runners in plain workers, the learner
+                 with num_gpus_per_learner=1 in the device worker) against
+                 LocalRuntime: three step()s each, the first step()'s
+                 learner metrics within 1e-4, step() ms of both.  The
+                 runtime is shut down on every exit of phases 20-22.
 
 Phase `kernels` also holds the flash forward and backward at the Mixtral
 layer's shape ([2, 4096, 32, 8, 128], bf16, timed) and at the ViT-B/16
@@ -4540,6 +4569,359 @@ def phase_rl_algos_cartpole(card):
                              f"metrics in {broken}; kernels {launches}")
 
 
+# ------------------------------ phases 20-22: the port's own core runtime
+CLUSTER_T = 600.0          # every cluster get waits at most this long
+CLUSTER_BYTES = 64 << 20   # the put/get probe: a 64 MB bf16 tensor
+
+
+def cluster_runtime():
+    """ClusterRuntime whose gets wait at most CLUSTER_T seconds and whose
+    actors answer `where()` with their process id."""
+    from ray_tpu_torch.serve.runtime import ClusterRuntime
+
+    class Timed(ClusterRuntime):
+        def remote(self, cls):
+            class Placed(cls):
+                def where(self):
+                    import os as _os
+
+                    return _os.getpid()
+
+            return super().remote(Placed)
+
+        def get(self, ref, timeout=None):
+            return super().get(ref, timeout=CLUSTER_T if timeout is None
+                               else timeout)
+
+    return Timed()
+
+
+def gpu_apps() -> str:
+    """Each process's device memory as nvidia-smi lists it (may be empty
+    where the card's processes are not visible)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except Exception as e:  # noqa: BLE001 - report, never fail on it
+        return f"unavailable: {e!r}"
+
+
+class DeviceProbe:
+    """An actor of the cluster phases: where it runs and what it sees."""
+
+    def info(self):
+        import os as _os
+
+        import ray_tpu_torch as _rt
+        import torch as _torch
+
+        if _torch.cuda.is_available():
+            _torch.zeros(1, device="cuda")      # the process's context
+            _torch.cuda.synchronize()
+        return {"pid": _os.getpid(), "gpu_ids": _rt.get_gpu_ids(),
+                "cuda_visible": _os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "reserved_gb": _torch.cuda.memory_reserved() / 1e9
+                if _torch.cuda.is_available() else None}
+
+    def fetch(self, boxed):
+        """Get the ref in `boxed` (a list, so the call does not resolve
+        it first); returns (seconds, device, the tensor)."""
+        import time as _time
+
+        import ray_tpu_torch as _rt
+        import torch as _torch
+
+        t0 = _time.perf_counter()
+        x = _rt.get(boxed[0], timeout=600.0)
+        _torch.cuda.synchronize()
+        return _time.perf_counter() - t0, str(x.device), x
+
+
+def phase_cluster_core(card):
+    """The port's runtime on the card (see 20 in the module docstring);
+    returns the init seconds."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import api
+    from ray_tpu_torch._private.worker import global_worker
+
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=8 << 30)
+    init_s = time.perf_counter() - t0
+    res = rt.cluster_resources()
+    core = global_worker()
+    ctl, _ = core.call(core.controller_addr, "modules", {}, timeout=60.0)
+    agent, _ = core.call(core.agent_addr, "modules", {}, timeout=60.0)
+
+    def plain_probe():
+        import os as _os
+
+        import torch as _torch
+
+        return {"pid": _os.getpid(), "cuda": _torch.cuda.is_available(),
+                "cuda_visible": _os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    t0 = time.perf_counter()
+    plain = rt.get(rt.remote(plain_probe).remote(), timeout=CLUSTER_T)
+    first_task_s = time.perf_counter() - t0
+    probe = rt.remote(DeviceProbe).options(num_gpus=1)
+    a = probe.remote()
+    t0 = time.perf_counter()
+    first = rt.get(a.info.remote(), timeout=CLUSTER_T)
+    device_first_s = time.perf_counter() - t0
+    rt.kill(a)
+    b = probe.remote()
+    second = rt.get(b.info.remote(), timeout=CLUSTER_T)
+
+    x = torch.randn(CLUSTER_BYTES // 2, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED)).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = rt.put(x)
+    put_s = time.perf_counter() - t0
+    out = b.fetch.remote([ref])
+    t0 = time.perf_counter()
+    get_dev_s, dev_where, back = rt.get(out, timeout=CLUSTER_T)
+    round_s = time.perf_counter() - t0
+    after = rt.get(b.info.remote(), timeout=CLUSTER_T)
+    bitwise = (back.dtype == x.dtype and back.shape == x.shape
+               and torch.equal(back.view(torch.int16),
+                               x.cpu().view(torch.int16)))
+    rt.kill(b)
+    gb = CLUSTER_BYTES / 1e9
+    row = {"phase": "cluster_core", "card": card, "resources": res,
+           "init_s": init_s, "first_task_s": first_task_s,
+           "device_worker_first_call_s": device_first_s,
+           "pids": {"driver": os.getpid(), "controller": ctl["pid"],
+                    "agent": agent["pid"], "plain_worker": plain["pid"],
+                    "device_worker": [first["pid"], second["pid"]],
+                    "heads": sorted(p.pid for p in api._head_processes)},
+           "plain_worker": plain, "device_worker": [first, second],
+           "head_modules_torch": ["torch" in ctl["modules"],
+                                  "torch" in agent["modules"]],
+           "tensor_mb": CLUSTER_BYTES / 2**20, "put_s": put_s,
+           "put_gbps": gb / put_s, "device_worker_get_s": get_dev_s,
+           "device_worker_get_gbps": gb / get_dev_s,
+           "device_worker_tensor_device": dev_where,
+           "return_and_driver_get_s": round_s,
+           "bitwise_equal": bool(bitwise),
+           "memory_gb": {"driver_reserved":
+                         torch.cuda.memory_reserved() / 1e9,
+                         "device_worker_reserved": after["reserved_gb"]},
+           "nvidia_smi_apps": gpu_apps()}
+    emit(row)
+    forbidden = {"jax", "ray_tpu", "zmq", "msgpack", "cloudpickle",
+                 "psutil"}
+    bad = [n for n, m in (("controller", ctl), ("agent", agent))
+           if forbidden & set(m["modules"]) or "torch" in m["modules"]]
+    if (res.get("GPU") != 1.0 or bad or plain["cuda"]
+            or plain["cuda_visible"] != ""
+            or first["pid"] != second["pid"]
+            or first["gpu_ids"] != [0] or second["gpu_ids"] != [0]
+            or first["pid"] in (plain["pid"], os.getpid())
+            or dev_where != "cuda:0" or not bitwise):
+        raise AssertionError(f"cluster_core: {row}")
+    return init_s
+
+
+def cluster_prompts(cfg) -> list:
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(1, cfg.vocab_size,
+                         RLHF_350M["prompt_len"]).tolist()
+            for _ in range(RLHF_350M["prompts_per_step"])]
+
+
+def counting_worker():
+    """LLMRolloutWorker whose params come as a positional argument (the
+    runtime resolves a ref there) and which zeroes and reads the paged
+    and flash launch counters of its own process."""
+    from ray_tpu_torch.rl.rollout_llm import LLMRolloutWorker
+
+    class Counting(LLMRolloutWorker):
+        def __init__(self, model, params, **kw):
+            super().__init__(model, params=params, **kw)
+
+        def zero_counts(self):
+            zero_serve_counts()
+
+        def counts(self):
+            return rlhf_counts()
+
+        def reserved_gb(self):
+            return torch.cuda.memory_reserved() / 1e9
+
+    return Counting
+
+
+def phase_cluster_rollout_350m(card):
+    """An LLMRolloutWorker as a num_gpus=1 actor at rlhf_350m's settings
+    against the same worker in process (see 21 in the module
+    docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.rl.rollout_llm import LLMRolloutWorker
+
+    cfg = llama.llama_configs()["bench-350m"]
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = cluster_prompts(cfg)
+    kw = dict(group_size=RLHF_350M["group_size"],
+              max_new_tokens=RLHF_350M["max_new_tokens"],
+              temperature=RLHF_350M["temperature"])
+    engine = dict(RLHF_350M["engine"])
+
+    zero_serve_counts()
+    w = LLMRolloutWorker(cfg, params=params, seed=SEED, engine=engine)
+    local, local_s = [], []
+    try:
+        for _ in range(2):                     # warm-up (capture), timed
+            t0 = time.perf_counter()
+            local.append(w.rollout(prompts, **kw))
+            local_s.append(time.perf_counter() - t0)
+    finally:
+        w.stop()
+    local_counts = rlhf_counts()
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params_gb = sum(t.numel() * t.element_size()
+                    for t in _tensor_leaves(params)) / 1e9
+    crt = cluster_runtime()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = crt.put(params)
+    put_s = time.perf_counter() - t0
+    del params
+    t0 = time.perf_counter()
+    actor = crt.remote(counting_worker()).options(num_gpus=1).remote(
+        cfg, ref, seed=SEED, engine=engine)
+    crt.get(actor.zero_counts.remote())
+    build_s = time.perf_counter() - t0
+    remote, remote_s = [], []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            remote.append(crt.get(actor.rollout.remote(prompts, **kw)))
+            remote_s.append(time.perf_counter() - t0)
+        remote_counts = crt.get(actor.counts.remote())
+        dev_pid = crt.get(actor.where.remote())
+        dev_gb = crt.get(actor.reserved_gb.remote())
+    finally:
+        crt.get(actor.stop.remote())
+        crt.kill(actor)
+    keys = ("tokens", "mask", "prompt_len", "total_len")
+    same = all(np.array_equal(a[k], b[k]) for a, b in zip(local, remote)
+               for k in keys)
+    want = ("paged_decode_attention", "flash_attention_fwd/wgmma")
+    tokens = [int(t["rollout_tokens"]) for t in remote]
+    row = {"phase": "cluster_rollout_350m", "card": card,
+           "model": "bench-350m", "dtype": "bfloat16",
+           "prompts": [len(p) for p in prompts], **kw, "engine": engine,
+           "params_put_s": put_s,
+           "params_gb": params_gb,
+           "actor_build_s": build_s, "device_worker_pid": dev_pid,
+           "rollout_s": {"in_process": local_s, "actor": remote_s},
+           "gen_s": {"in_process": [t["gen_s"] for t in local],
+                     "actor": [t["gen_s"] for t in remote]},
+           "completion_tokens": tokens,
+           "completion_tokens_per_s": {
+               "in_process": tokens[1] / local_s[1],
+               "actor": tokens[1] / remote_s[1]},
+           "tokens_equal": bool(same),
+           "launches": {"in_process": {k: local_counts[k] for k in want},
+                        "device_worker": {k: remote_counts[k]
+                                          for k in want}},
+           "memory_gb": {"driver_reserved":
+                         torch.cuda.memory_reserved() / 1e9,
+                         "device_worker_reserved": dev_gb},
+           "nvidia_smi_apps": gpu_apps()}
+    emit(row)
+    if (not same or dev_pid == os.getpid()
+            or any(local_counts[k] == 0 or local_counts[k]
+                   != remote_counts[k] for k in want)):
+        raise AssertionError(f"cluster_rollout_350m: {row}")
+    return remote_counts, dev_pid
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def phase_cluster_rl_cartpole(card, device_pid: int):
+    """PPO at rl_algos_cartpole's settings through ClusterRuntime against
+    LocalRuntime (see 22 in the module docstring); `device_pid` is the
+    device worker's."""
+    from ray_tpu_torch.serve.runtime import LocalRuntime
+
+    n_steps = 3
+    rows = {}
+    local_rt = LocalRuntime()
+    try:
+        for name, rtm in (("local", local_rt),
+                          ("cluster", cluster_runtime())):
+            cfg = rl_cartpole_configs()["ppo"][0].learners(
+                num_gpus_per_learner=1)
+            algo = cfg.build(runtime=rtm, device="cuda")
+            try:
+                res, ms = [], []
+                for _ in range(n_steps):
+                    t0 = time.perf_counter()
+                    res.append(algo.step())
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                where = None
+                if name == "cluster":
+                    where = {
+                        "learner": [rtm.get(h.where.remote()) for h in
+                                    algo.learner_group.learners],
+                        "env_runners": [rtm.get(h.where.remote()) for h in
+                                        algo.env_runner_group.runners]}
+            finally:
+                algo.cleanup()
+            rows[name] = {"step_ms": ms, "results": res, "pids": where}
+    finally:
+        local_rt.shutdown()
+    first = {k: (rows["local"]["results"][0][k],
+                 rows["cluster"]["results"][0][k])
+             for k in rows["local"]["results"][0]
+             if k.startswith("learner/")
+             or k in ("episode_return_mean",
+                      "num_env_steps_sampled_lifetime")}
+    diffs = {k: abs(float(a) - float(b)) for k, (a, b) in first.items()}
+    worst = max(rel_diff(a, b) for a, b in first.values())
+    row = {"phase": "cluster_rl_cartpole", "card": card, "algorithm": "ppo",
+           "step_ms": {k: r["step_ms"] for k, r in rows.items()},
+           "step_ms_after_first": {
+               k: float(np.mean(r["step_ms"][1:])) for k, r in rows.items()},
+           "first_step": {k: [float(a), float(b)]
+                          for k, (a, b) in first.items()},
+           "first_step_abs_diff": diffs, "first_step_worst_rel": worst,
+           "pids": {"driver": os.getpid(), "device_worker": device_pid,
+                    **rows["cluster"]["pids"]}}
+    emit(row)
+    pids = rows["cluster"]["pids"]
+    if (worst > 1e-4 or pids["learner"] != [device_pid]
+            or device_pid in pids["env_runners"]
+            or os.getpid() in pids["env_runners"]):
+        raise AssertionError(f"cluster_rl_cartpole: {row}")
+
+
+def rel_diff(a, b) -> float:
+    a, b = float(a), float(b)
+    if a != a and b != b:
+        return 0.0
+    return abs(a - b) / max(1.0, abs(b))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4618,6 +5000,16 @@ def main() -> int:
     trainer = phase_trainer_350m(card, sharded)
     phase_rl_algos_small()
     phase_rl_algos_cartpole(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    import ray_tpu_torch
+
+    try:
+        phase_cluster_core(card)
+        cluster_rollout, device_pid = phase_cluster_rollout_350m(card)
+        phase_cluster_rl_cartpole(card, device_pid)
+    finally:
+        ray_tpu_torch.shutdown()
 
     def entry(name, kernel, src, replaces, launches, row, part=None,
               errs=()):
@@ -4738,6 +5130,12 @@ def main() -> int:
                     (3, "flash_attention_bwd_dq/wgmma"),
                     (5, "flash_attention_bwd_dkv/wgmma")):
         kernels[i]["launches_rlhf_mesh_learner_350m"] = mesh350[name]
+    # The rollout worker as an actor in the port runtime's device worker,
+    # counted there.
+    kernels[0]["launches_cluster_rollout_350m"] = \
+        cluster_rollout["paged_decode_attention"]
+    kernels[1]["launches_cluster_rollout_350m"] = \
+        cluster_rollout["flash_attention_fwd/wgmma"]
     kernels[0]["launches_serve_8b_observed"] = \
         observed["paged_decode_attention"]
     kernels[1]["launches_serve_8b_observed"] = \

@@ -67,8 +67,12 @@ def _start(name: str):
     if os.path.exists(so):
         return None
     os.makedirs(out_dir, exist_ok=True)
+    # Every file is written under a name of this process's own and
+    # published by os.replace, so a process that builds at the same time
+    # (the driver and the runtime's device worker) never loads or reads
+    # a half-written one.
     tmp = f"{so}.{os.getpid()}.tmp"
-    log = os.path.join(out_dir, f"{name}.nvcc.log")
+    log = os.path.join(out_dir, f"{name}.nvcc.log.{os.getpid()}.tmp")
     with open(log, "w") as lf:
         proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                                 stdout=lf, stderr=subprocess.STDOUT)
@@ -79,23 +83,37 @@ def _finish(name: str, job, t0: float) -> None:
     proc, tmp, so, log = job
     rc = proc.wait()
     if rc != 0:
+        # A failed build leaves none of its files behind: the error
+        # carries the log's tail.
         with open(log) as f:
-            raise RuntimeError(f"nvcc failed for {SOURCES[name]} (rc {rc}):\n"
-                               + f.read()[-4000:])
+            tail = f.read()[-4000:]
+        for path in (log, tmp):
+            if os.path.exists(path):
+                os.remove(path)
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]} (rc {rc}):\n"
+                           + tail)
+    os.replace(log, log.rsplit(".", 2)[0])
     os.replace(tmp, so)
     build_seconds[name] = time.perf_counter() - t0
 
 
 def _build_missing() -> None:
     """Build every library not on disk yet: one nvcc per source, all
-    started together.  Caller holds _lock."""
+    started together.  Every nvcc is waited for before the first failure
+    is raised.  Caller holds _lock."""
     t0 = time.perf_counter()
     jobs = {n: _start(n) for n in SOURCES}
+    failures = []
     for name, job in jobs.items():
         if job is None:
             build_seconds.setdefault(name, 0.0)
-        else:
+            continue
+        try:
             _finish(name, job, t0)
+        except RuntimeError as e:
+            failures.append(e)
+    if failures:
+        raise failures[0]
 
 
 def build_all() -> dict[str, float]:

@@ -76,7 +76,7 @@ class AlgorithmConfig:
         self.hidden = 64
         self.seed = 0
         self.num_learners = 1
-        self.num_tpus_per_learner = 0.0
+        self.num_gpus_per_learner = 0.0
         self.extra: dict[str, Any] = {}
 
     # -- builder steps ------------------------------------------------------
@@ -107,12 +107,12 @@ class AlgorithmConfig:
         return self
 
     def learners(self, num_learners: int | None = None,
-                 num_tpus_per_learner: float | None = None,
+                 num_gpus_per_learner: float | None = None,
                  **_kw) -> "AlgorithmConfig":
         if num_learners is not None:
             self.num_learners = num_learners
-        if num_tpus_per_learner is not None:
-            self.num_tpus_per_learner = num_tpus_per_learner
+        if num_gpus_per_learner is not None:
+            self.num_gpus_per_learner = num_gpus_per_learner
         return self
 
     def debugging(self, seed: int | None = None, **_kw) -> "AlgorithmConfig":
@@ -196,7 +196,7 @@ class Algorithm:
         self.learner_group = LearnerGroup(
             learner_cfg, type(self).loss_builder,
             num_learners=self.cfg["num_learners"],
-            num_tpus_per_learner=self.cfg["num_tpus_per_learner"],
+            num_gpus_per_learner=self.cfg["num_gpus_per_learner"],
             runtime=self.runtime, device=self.device)
         # Learner 0's params; a learner that could not build (no such
         # device) raises here.

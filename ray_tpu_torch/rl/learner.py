@@ -173,13 +173,13 @@ class LearnerGroup:
     to the CPU."""
 
     def __init__(self, config: dict, loss_builder: Callable,
-                 num_learners: int = 1, num_tpus_per_learner: float = 0,
+                 num_learners: int = 1, num_gpus_per_learner: float = 0,
                  runtime=None, device=None):
         self.runtime = runtime or ServeRuntime()
         cls = self.runtime.remote(Learner)
         opts = {"num_cpus": 1}
-        if num_tpus_per_learner:
-            opts["num_tpus"] = num_tpus_per_learner
+        if num_gpus_per_learner:
+            opts["num_gpus"] = num_gpus_per_learner
         self.learners = [cls.options(**opts).remote(config, loss_builder,
                                                     device=device)
                          for _ in range(max(1, num_learners))]

@@ -968,3 +968,124 @@ class LocalRuntime(ServeRuntime):
                 g.slots[seq] = [payload, g.world_size - 1]
                 g.cond.notify_all()
         return _Received(g, seq, src_rank, payload)
+
+
+def _later(face: str, item: str):
+    raise NotImplementedError(
+        f"ClusterRuntime: the {face} is not ported yet (ROADMAP.md queue "
+        f"1: {item})")
+
+
+class ClusterRuntime(ServeRuntime):
+    """ServeRuntime over the port's own runtime (`ray_tpu_torch.init()`:
+    the controller, the node agent and worker processes of `_private/`),
+    the counterpart of the tests' `RayTpuRuntime` binding to ray_tpu.
+
+    It binds the object plane (`put`, `get`, `is_ref`), the actor face
+    (`remote`, `kill`: a `num_gpus` actor runs in the node's device
+    worker, any other in a plain worker that sees no CUDA device), the
+    failpoint hook (`_private/failpoints.py`) and the memory-ledger face
+    (`_private/memledger.py`).  The serve faces, the collective face, the
+    tracing face and the metric face belong to later slices of the port
+    and raise NotImplementedError naming them.  It holds no state, so it
+    pickles into actors."""
+
+    # ---------------------------------------------------------- objects
+    def put(self, value):
+        import ray_tpu_torch
+
+        return ray_tpu_torch.put(value)
+
+    def get(self, ref, timeout: float | None = None):
+        import ray_tpu_torch
+
+        return ray_tpu_torch.get(ref, timeout=timeout)
+
+    def is_ref(self, x) -> bool:
+        from ray_tpu_torch.object_ref import ObjectRef
+
+        return isinstance(x, ObjectRef)
+
+    # ------------------------------------------------------------ serve
+    def deployment_handle(self, name: str, app: str):
+        _later("serve face", "serve")
+
+    def replica_context(self):
+        _later("serve face", "serve")
+
+    def controller(self):
+        _later("serve face", "serve")
+
+    # ----------------------------------------------------------- actors
+    def remote(self, cls):
+        import ray_tpu_torch
+
+        return ray_tpu_torch.remote(cls)
+
+    def kill(self, actor) -> None:
+        import ray_tpu_torch
+
+        ray_tpu_torch.kill(actor)
+
+    # ------------------------------------------------------ collectives
+    def init_collective_group(self, world_size: int, rank: int,
+                              group_name: str = "default") -> None:
+        _later("collective face", "collectives over the object plane")
+
+    def get_rank(self, group_name: str = "default") -> int:
+        _later("collective face", "collectives over the object plane")
+
+    def deregister_collective_group(self, group_name: str) -> None:
+        _later("collective face", "collectives over the object plane")
+
+    def destroy_collective_group(self, group_name: str,
+                                 reason: str | None = None) -> None:
+        _later("collective face", "collectives over the object plane")
+
+    def broadcast_async(self, payload, src_rank: int,
+                        group_name: str = "default"):
+        _later("collective face", "collectives over the object plane")
+
+    # ------------------------------------------------------------ hooks
+    def failpoint(self, site: str) -> None:
+        from ray_tpu_torch._private import failpoints
+
+        if failpoints.ACTIVE:
+            failpoints.fire(site)
+
+    # ---------------------------------------------------------- tracing
+    def tracing_enabled(self) -> bool:
+        _later("tracing face", "the tracing and metric faces")
+
+    def trace_capture(self):
+        _later("tracing face", "the tracing and metric faces")
+
+    def trace_current(self):
+        _later("tracing face", "the tracing and metric faces")
+
+    def emit(self, name, t0, t1=None, ctx=None, attrs=None) -> None:
+        _later("tracing face", "the tracing and metric faces")
+
+    def span(self, name: str, attrs: dict | None = None, ctx=None):
+        _later("tracing face", "the tracing and metric faces")
+
+    # ---------------------------------------------------------- metrics
+    def metric(self, kind, name, description="", tag_keys=(),
+               boundaries=None):
+        _later("metric face", "the tracing and metric faces")
+
+    # ---------------------------------------------------- memory ledger
+    def register_provider(self, key, rows_fn) -> None:
+        from ray_tpu_torch._private import memledger
+
+        memledger.register_provider(key, rows_fn)
+
+    def unregister_provider(self, key) -> None:
+        from ray_tpu_torch._private import memledger
+
+        memledger.unregister_provider(key)
+
+    def memory_tag(self, kind, label=None):
+        from ray_tpu_torch._private import memledger
+
+        return memledger.tag(kind, label=label)

@@ -350,8 +350,15 @@ def test_config_builder_matches_the_reference():
                 .training(lr=1e-3, horizon=7, free_bits=0.5)
                 .learners(num_learners=1).debugging(seed=5))
 
+    def renamed(d):
+        # The port's accelerator option is num_gpus_per_learner (the
+        # reference's num_tpus_per_learner; ROADMAP.md queue 1, renames).
+        d = dict(d)
+        d["num_gpus_per_learner"] = d.pop("num_tpus_per_learner")
+        return d
+
     mine, ref = build(DreamerV3Config), build(Ref)
-    assert mine.to_dict() == ref.to_dict()
+    assert mine.to_dict() == renamed(ref.to_dict())
     copied = mine.copy().training(gamma=0.5)
     assert copied.gamma == 0.5 and mine.gamma == 0.997
     assert DreamerV3.get_default_config().algo_class is DreamerV3
@@ -360,7 +367,7 @@ def test_config_builder_matches_the_reference():
             mine.build()
     algo = mine.build(device="cpu")
     assert {k: v for k, v in algo.cfg.items() if k != "algo_class"} == {
-        **Ref().to_dict(), **ref.to_dict()}
+        **renamed(Ref().to_dict()), **renamed(ref.to_dict())}
 
 
 def test_gumbel_seam_and_set_params():

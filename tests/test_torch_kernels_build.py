@@ -1,6 +1,12 @@
-"""The kernel build's cache key and the profiler's kernel groups, on the
-CPU: no nvcc runs and no card is needed."""
+"""The kernel build's cache key, two processes building at once, and the
+profiler's kernel groups, on the CPU: no nvcc runs and no card is
+needed."""
+import os
 import shutil
+import subprocess
+import sys
+import textwrap
+import time
 
 import pytest
 
@@ -50,6 +56,98 @@ def test_edited_source_changes_only_its_own_key(csrc_copy):
     assert after["flash_fwd"] != before["flash_fwd"]
     assert {n: d for n, d in after.items() if n != "flash_fwd"} == \
         {n: d for n, d in before.items() if n != "flash_fwd"}
+
+
+_FAKE_NVCC = textwrap.dedent("""\
+    import sys, time
+    out = sys.argv[sys.argv.index("-o") + 1]
+    print("ptxas info    : Used 1 registers")
+    with open(out, "wb") as f:
+        for _ in range(64):
+            f.write(b"x" * 1024)
+            f.flush()
+            time.sleep(0.004)
+    """)
+
+
+def test_two_processes_building_at_once_publish_only_whole_libraries(
+        csrc_copy, tmp_path, monkeypatch):
+    """The driver and the runtime's device worker may build the same
+    libraries at once: each writes under a name of its own and publishes
+    with os.replace, so a library that exists is always whole (here a
+    fake nvcc writes 64 KiB slowly) and both processes end with it."""
+    from ray_tpu_torch import _kernels
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\n" + _FAKE_NVCC)
+    nvcc.chmod(0o755)
+    build = tmp_path / "build"
+    monkeypatch.setattr(_kernels, "_BUILD", str(build))
+    sos = [_kernels._paths(n)[2] for n in _kernels.SOURCES]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = textwrap.dedent(f"""\
+        import sys
+        sys.path.insert(0, {repo!r})
+        from ray_tpu_torch import _kernels as k
+        k._CSRC, k._BUILD = {str(csrc_copy)!r}, {str(build)!r}
+        k._nvcc = lambda: {str(nvcc)!r}
+        k.build_all()
+        """)
+    procs = [subprocess.Popen([sys.executable, "-c", code])
+             for _ in range(2)]
+    try:
+        deadline = time.monotonic() + 120
+        while any(p.poll() is None for p in procs):
+            assert time.monotonic() < deadline
+            for so in sos:
+                if os.path.exists(so):
+                    assert os.path.getsize(so) == 64 * 1024, so
+            time.sleep(0.001)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    assert [p.returncode for p in procs] == [0, 0]
+    for name in _kernels.SOURCES:
+        so = _kernels._paths(name)[2]
+        assert os.path.getsize(so) == 64 * 1024
+        assert "Used 1 registers" in _kernels.nvcc_log(name)
+    left = [f for d in build.iterdir() for f in os.listdir(d)
+            if f.endswith(".tmp")]
+    assert not left, left
+
+
+def test_failed_build_leaves_no_files_and_raises_the_log(
+        csrc_copy, tmp_path, monkeypatch):
+    """nvcc failing for one source raises with its log's tail, after every
+    other nvcc has finished, and leaves no temporary file behind."""
+    from ray_tpu_torch import _kernels
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\n" + textwrap.dedent("""\
+        import sys
+        out = sys.argv[sys.argv.index("-o") + 1]
+        src = sys.argv[-1]
+        if src.endswith("paged_decode.cu"):
+            open(out, "wb").write(b"half")
+            print("error: paged_decode.cu(1): expected a declaration")
+            sys.exit(2)
+        print("ptxas info    : Used 1 registers")
+        open(out, "wb").write(b"x" * 1024)
+        """))
+    nvcc.chmod(0o755)
+    build = tmp_path / "build"
+    monkeypatch.setattr(_kernels, "_BUILD", str(build))
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_kernels, "build_seconds", {})
+    with pytest.raises(RuntimeError, match="expected a declaration"):
+        _kernels.build_all()
+    files = sorted(f for d in build.iterdir() for f in os.listdir(d))
+    assert not [f for f in files if f.endswith(".tmp")], files
+    assert not os.path.exists(_kernels._paths("paged_decode")[2])
+    for name in ("flash_fwd", "flash_bwd"):
+        assert os.path.getsize(_kernels._paths(name)[2]) == 1024
 
 
 # Kernel names as torch.profiler reports them on the card.

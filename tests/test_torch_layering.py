@@ -1,8 +1,12 @@
 """Layering of the port: ray_tpu_torch and chip_smoke.py import nothing of
-JAX or of the JAX package, call no library attention or compiler, and the
-entry points refuse to fall back to the CPU quietly."""
+JAX or of the JAX package, nothing outside the standard library, numpy,
+torch and triton, start no process of the JAX package, call no library
+attention or compiler, and the entry points refuse to fall back to the
+CPU quietly."""
 import ast
 import os
+import re
+import sys
 
 import pytest
 import torch
@@ -11,6 +15,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ray_tpu_torch")
 FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax", "ray_tpu"}
 FORBIDDEN_NAMES = ("scaled_dot_product_attention", "torch.compile")
+# Third-party packages the port may import; everything else must be in
+# the standard library (so zmq, msgpack, cloudpickle and psutil, which
+# the reference runtime uses, cannot creep in).
+ALLOWED_TOP = {"numpy", "torch", "triton", "ray_tpu_torch"}
 
 
 def _files():
@@ -73,6 +81,18 @@ def test_walk_covers_the_package_and_chip_smoke():
                 "ray_tpu_torch/rl/rollout_llm.py",
                 "ray_tpu_torch/data/iterator.py",
                 "ray_tpu_torch/api.py",
+                "ray_tpu_torch/actor.py",
+                "ray_tpu_torch/remote_function.py",
+                "ray_tpu_torch/object_ref.py",
+                "ray_tpu_torch/runtime_context.py",
+                "ray_tpu_torch/exceptions.py",
+                "ray_tpu_torch/_private/rpc.py",
+                "ray_tpu_torch/_private/serialization.py",
+                "ray_tpu_torch/_private/controller.py",
+                "ray_tpu_torch/_private/node_agent.py",
+                "ray_tpu_torch/_private/worker.py",
+                "ray_tpu_torch/_private/worker_main.py",
+                "ray_tpu_torch/_private/object_store.py",
                 "ray_tpu_torch/parallel/comm.py",
                 "ray_tpu_torch/parallel/ring.py",
                 "ray_tpu_torch/parallel/pipeline.py",
@@ -92,6 +112,29 @@ def test_no_jax_or_reference_package_imports():
     bad = [f"{os.path.relpath(p, REPO)}:{ln}: imports {mod}"
            for p in _files() for mod, ln in _imports_of(p)
            if mod.split(".")[0] in FORBIDDEN_TOP]
+    assert not bad, "\n".join(bad)
+
+
+def test_imports_only_stdlib_numpy_torch_triton():
+    bad = [f"{os.path.relpath(p, REPO)}:{ln}: imports {mod}"
+           for p in _files() for mod, ln in _imports_of(p)
+           if mod.split(".")[0] not in sys.stdlib_module_names
+           and mod.split(".")[0] not in ALLOWED_TOP]
+    assert not bad, "\n".join(bad)
+
+
+def test_no_process_of_the_reference_package():
+    """No string names a `ray_tpu.` module, so nothing can start one with
+    `python -m` (the port's runtime spawns ray_tpu_torch._private.*)."""
+    bad = []
+    for p in _files():
+        with open(p, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), filename=p)
+        bad += [f"{os.path.relpath(p, REPO)}:{node.lineno}: {node.value}"
+                for node in ast.walk(tree)
+                if isinstance(node, ast.Constant)
+                and isinstance(node.value, str)
+                and re.fullmatch(r"ray_tpu(\.\w+)+", node.value)]
     assert not bad, "\n".join(bad)
 
 

@@ -279,9 +279,9 @@ def test_iter_device_batches_keeps_order_and_casts():
 def test_get_gpu_ids_follows_the_device_worker_gate(monkeypatch):
     from ray_tpu_torch.api import get_gpu_ids
 
-    monkeypatch.delenv("RAY_TPU_IS_DEVICE_WORKER", raising=False)
+    monkeypatch.delenv("RAY_TPU_TORCH_IS_DEVICE_WORKER", raising=False)
     assert get_gpu_ids() == []
-    monkeypatch.setenv("RAY_TPU_IS_DEVICE_WORKER", "1")
+    monkeypatch.setenv("RAY_TPU_TORCH_IS_DEVICE_WORKER", "1")
     want = list(range(torch.cuda.device_count())) \
         if torch.cuda.is_available() else []
     assert get_gpu_ids() == want
