@@ -383,8 +383,39 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  ClusterRuntime (env runners in plain workers, the learner
                  with num_gpus_per_learner=1 in the device worker) against
                  LocalRuntime: three step()s each, the first step()'s
-                 learner metrics within 1e-4, step() ms of both.  The
-                 runtime is shut down on every exit of phases 20-22.
+                 learner metrics within 1e-4, step() ms of both.
+  23. cluster_collective -- collectives over the object plane
+                 (ray_tpu_torch.collective) in a group of three: rank 0 a
+                 num_gpus actor in the device worker (its tensors on
+                 CUDA, copied to the host by the collective), ranks 1-2 in
+                 plain workers.  Allreduce, allgather, reducescatter and
+                 broadcast at 64 MB each on integer-valued f32 and bf16:
+                 every rank's result equal bit for bit to the host
+                 reduction, of the input's dtype; the tracer's sent bytes
+                 per rank equal to the schedule's (`schedule_bytes`);
+                 seconds, GB/s and phase sums per op.
+  24. cluster_rlhf_actors_350m -- 7d's settings through ClusterRuntime:
+                 the learner and both rollout actors ask for a share of
+                 "GPU" and must all run in the device worker's pid.  One
+                 warm-up step: each worker's first trajectory tokens equal
+                 to 7d's and the learner's metrics and advantages within
+                 1e-4.  Counters zeroed inside the device worker before
+                 four timed steps and read there after: each equal to 7d's
+                 count.  Step s, completion tokens/s, update s, and each
+                 weight sync split from its harvested trace into the
+                 learner's pack (the `collective.pack` span), each rank's
+                 broadcast and the engines' swap ms, for 889,292,800
+                 packed bytes; the harvested span names and the
+                 rl_rollout_tokens counter the device worker flushed to the
+                 controller's KV, equal to the completion tokens of the
+                 five steps.  Then one crash run at 2 steps
+                 (checkpoint_every=1): `rl.rollout_step` crash armed in
+                 the device worker kills that process, so every actor of
+                 the topology; the step recovers (rollout_regens and
+                 learner_restarts reported, the actors respawned in one
+                 new device worker, both engines at the learner's
+                 version).  The runtime is shut down on every exit of
+                 phases 20-24.
 
 Phase `kernels` also holds the flash forward and backward at the Mixtral
 layer's shape ([2, 4096, 32, 8, 128], bf16, timed) and at the ViT-B/16
@@ -2299,6 +2330,11 @@ def recording_worker():
             self.trajs.append(traj)
             return traj
 
+        def traj_tokens(self, i: int):
+            """The tokens of the i-th trajectory batch this worker
+            returned."""
+            return self.trajs[i]["tokens"]
+
     return Recording
 
 
@@ -3124,7 +3160,8 @@ def phase_rlhf_actors_350m(card, one_worker: dict):
     def trainer(rt, **kw):
         return RLHFTrainer(RLHFConfig(
             model=cfg, params=params, seed=SEED, num_rollout_workers=2,
-            remote_learner=True, runtime=rt, **RLHF_350M, **kw))
+            remote_learner=True, runtime=rt, worker_cls=recording_worker(),
+            **RLHF_350M, **kw))
 
     def row_of(m, step_s, versions):
         r = m["rollout"]
@@ -3150,6 +3187,7 @@ def phase_rlhf_actors_350m(card, one_worker: dict):
         torch.cuda.synchronize()
         warm = row_of(m, time.perf_counter() - t0,
                       wait_swapped(rt, tr.workers, m["version"]))
+        first = first_step(rt, tr, m)
         torch.cuda.reset_peak_memory_stats()
         g0 = actor_graphs(rt, tr.workers)
         zero_serve_counts()
@@ -3279,7 +3317,22 @@ def phase_rlhf_actors_350m(card, one_worker: dict):
         raise AssertionError(f"rlhf_actors_350m: learner crash {restart}")
     if not all(kv):
         raise AssertionError(f"rlhf_actors_350m: kv_check {kv}")
-    return launches
+    return launches, first
+
+
+FIRST_STEP_KEYS = ("loss", "policy_loss", "kl", "ratio_mean", "reward_mean",
+                   "reward_std")
+
+
+def first_step(rt, tr, m) -> dict:
+    """A trainer's first step: each worker's first trajectory tokens and
+    the learner's metrics (what the cluster phase holds against the
+    LocalRuntime phase)."""
+    return {"tokens": [rt.get(w.traj_tokens.remote(0), timeout=60.0)
+                       for w in tr.workers],
+            "metrics": {k: float(m[k]) for k in FIRST_STEP_KEYS},
+            "advantages": np.asarray(m["advantages"], np.float32),
+            "rollout_tokens": int(m["rollout_tokens"])}
 
 
 # ------------------------------------------- phase 8: MoE, small f32
@@ -4915,6 +4968,380 @@ def phase_cluster_rl_cartpole(card, device_pid: int):
         raise AssertionError(f"cluster_rl_cartpole: {row}")
 
 
+COLLECTIVE_BYTES = 64 << 20      # each op's tensor: 64 MB
+
+
+def collective_member():
+    """A member of the cluster_collective group: it makes its own 64 MB
+    integer-valued tensor (on CUDA in the device worker), runs one
+    collective on it with the tracer armed, and checks the result against
+    the host reduction of every rank's tensor bit for bit."""
+    class Member:
+        def init_collective_group(self, world_size, rank, backend,
+                                  group_name):
+            from ray_tpu_torch import collective as c
+
+            c.init_collective_group(world_size, rank, backend, group_name,
+                                    timeout_s=300.0)
+            self.rank, self.world = rank, world_size
+            return rank
+
+        @staticmethod
+        def tensor(rank, dtype, device="cpu"):
+            import torch as _t
+
+            dt = getattr(_t, dtype)
+            n = COLLECTIVE_BYTES // _t.empty(0, dtype=dt).element_size()
+            return ((_t.arange(n, device=device) % 7) + rank + 1).to(dt)
+
+        def run(self, op, dtype):
+            import time as _time
+
+            import torch as _t
+
+            from ray_tpu_torch import collective as c
+            from ray_tpu_torch import profiling
+
+            dev = "cuda" if _t.cuda.is_available() else "cpu"
+            mine = self.tensor(self.rank, dtype, dev)
+            if dev == "cuda":
+                _t.cuda.synchronize()
+            allx = [self.tensor(r, dtype) for r in range(self.world)]
+            t0 = _time.perf_counter()
+            with profiling.collective_trace() as rec:
+                if op == "allreduce":
+                    out = c.allreduce(mine, "cc")
+                elif op == "allgather":
+                    out = c.allgather(mine, "cc")
+                elif op == "reducescatter":
+                    out = c.reducescatter(mine, "cc")
+                else:
+                    out = c.broadcast(mine if self.rank == 0 else None, 0,
+                                      "cc")
+            secs = _time.perf_counter() - t0
+            total = _t.stack([x.double() for x in allx]).sum(0)
+            if op == "allreduce":
+                want = [total.to(mine.dtype)]
+                got = [out]
+            elif op == "allgather":
+                want, got = allx, out
+            elif op == "reducescatter":
+                want = [_t.tensor_split(total, self.world)[self.rank]
+                        .to(mine.dtype)]
+                got = [out]
+            else:
+                want, got = [allx[0]], [out]
+            same = all(g.device.type == "cpu" and g.dtype == w.dtype
+                       and _t.equal(g, w) for g, w in zip(got, want))
+            return {"ok": bool(same), "s": secs,
+                    "trace": profiling.collective_breakdown_us(rec),
+                    "device": dev}
+
+    return Member
+
+
+def schedule_bytes(nbytes: int, itemsize: int, w: int) -> dict:
+    """The bytes each rank sends, by op, for one tensor of `nbytes` on
+    every rank of a world of `w`: the ring splits the flat tensor into w
+    chunks (tensor_split: sizes differ by one element at most); at world
+    3 the tree broadcast's source sends the tensor to each of its two
+    children.  Allreduce: every chunk but the rank's own in the
+    reduce-scatter, every chunk but its successor's in the allgather,
+    2N(w-1)/w up to the split; reducescatter N(w-1)/w; allgather
+    N(w-1)."""
+    n = nbytes // itemsize
+    c = [len(x) * itemsize
+         for x in torch.tensor_split(torch.empty(n, dtype=torch.uint8), w)]
+    return {"allreduce": [2 * nbytes - c[r] - c[(r + 1) % w]
+                          for r in range(w)],
+            "reducescatter": [nbytes - c[r] for r in range(w)],
+            "allgather": [nbytes * (w - 1)] * w,
+            "broadcast": [2 * nbytes] + [0] * (w - 1)}
+
+
+def phase_cluster_collective(card, device_pid: int):
+    """Collectives over the object plane on the card (see 23 in the
+    module docstring)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import collective as col
+
+    crt = cluster_runtime()
+    member = crt.remote(collective_member())
+    ws = [member.options(num_gpus=0.25, num_cpus=0).remote(),
+          member.options(num_cpus=0.5).remote(),
+          member.options(num_cpus=0.5).remote()]
+    try:
+        col.create_collective_group(ws, 3, [0, 1, 2], group_name="cc",
+                                    timeout=CLUSTER_T)
+        pids = [crt.get(w.where.remote()) for w in ws]
+        rows, bad = {}, []
+        n = COLLECTIVE_BYTES
+        for dtype in ("float32", "bfloat16"):
+            sent = schedule_bytes(n, torch.empty(
+                0, dtype=getattr(torch, dtype)).element_size(), 3)
+            for op in ("allreduce", "allgather", "reducescatter",
+                       "broadcast"):
+                res = crt.get([w.run.remote(op, dtype) for w in ws])
+                secs = max(r["s"] for r in res)
+                row = {"s": [r["s"] for r in res],
+                       "gb_per_s": n / secs / 1e9,
+                       "schedule": res[0]["trace"].get("schedule"),
+                       "sent_bytes": [r["trace"].get("sent_bytes")
+                                      for r in res],
+                       "recv_bytes": [r["trace"].get("recv_bytes")
+                                      for r in res],
+                       "phases_us": [{k: r["trace"].get(k) for k in (
+                           "send_us", "pull_us", "reduce_us", "wait_us",
+                           "total_us")} for r in res],
+                       "equal": [r["ok"] for r in res],
+                       "devices": [r["device"] for r in res]}
+                rows[f"{op}/{dtype}"] = row
+                row["schedule_bytes"] = sent[op]
+                if not all(row["equal"]) or \
+                        row["sent_bytes"] != sent[op]:
+                    bad.append(f"{op}/{dtype}")
+    finally:
+        for w in ws:
+            rt.kill(w)
+        col.destroy_collective_group("cc")
+    row = {"phase": "cluster_collective", "card": card, "world": 3,
+           "bytes": COLLECTIVE_BYTES,
+           "pids": {"members": pids, "device_worker": device_pid},
+           "ops": rows}
+    emit(row)
+    if bad or pids[0] != device_pid or device_pid in pids[1:] \
+            or rows["allreduce/float32"]["devices"] != ["cuda", "cpu",
+                                                        "cpu"]:
+        raise AssertionError(f"cluster_collective: {bad} {row}")
+
+
+def cluster_rlhf_worker():
+    """The recording rollout worker, counting the kernels of its own
+    process and armable at a failpoint site, for the cluster phase."""
+    class Worker(recording_worker()):
+        def zero_counts(self):
+            zero_serve_counts()
+
+        def counts(self):
+            return rlhf_counts()
+
+        def arm(self, site, action):
+            from ray_tpu_torch._private import failpoints
+
+            failpoints.arm(site, action)
+
+    return Worker
+
+
+def flushed_counter(name: str) -> dict:
+    """Counter `name` summed over every process's last metrics flush to
+    the controller's KV, by its tags."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    core = global_worker()
+    reply, _ = core.call(core.controller_addr, "kv_keys",
+                         {"ns": "metrics"}, timeout=60.0)
+    out: dict = {}
+    for key in reply["keys"]:
+        r, blobs = core.call(core.controller_addr, "kv_get",
+                             {"ns": "metrics", "key": key}, timeout=60.0)
+        if not r["found"]:
+            continue
+        for m in json.loads(bytes(blobs[0]))["metrics"]:
+            if m["name"] == name:
+                for v in m["values"]:
+                    tag = json.dumps(v["tags"], sort_keys=True)
+                    out[tag] = out.get(tag, 0.0) + v["value"]
+    return out
+
+
+def sync_split(spans: list, tid: str) -> dict:
+    """One weight sync's split from its trace: the learner's pack, each
+    rank's broadcast (collective.broadcast:0) ms, and the sync's wall."""
+    trace = [s for s in spans if s["tid"] == tid]
+    ms = lambda s: (s["t1"] - s["t0"]) * 1e3          # noqa: E731
+    sync = [s for s in trace if s["name"] == "rl.weight_sync"]
+    return {"sync_ms": ms(sync[0]) if sync else None,
+            "pack_ms": [ms(s) for s in trace
+                        if s["name"] == "collective.pack"],
+            "broadcast_ms": {s["attrs"].get("rank"): ms(s) for s in trace
+                             if s["name"] == "collective.broadcast:0"},
+            "spans": len(trace)}
+
+
+def phase_cluster_rlhf_actors_350m(card, device_pid: int, local: dict,
+                                   local_first: dict):
+    """rlhf_actors_350m through ClusterRuntime (see 24 in the module
+    docstring); `local` and `local_first` are the LocalRuntime phase's
+    launches and first step."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import tracing
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.rl.rlhf import RLHFConfig, RLHFTrainer
+    from ray_tpu_torch.train.step import param_leaves
+
+    cfg = llama.llama_configs()["bench-350m"]
+    n_timed = 4
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    packed = sum(t.numel() * t.element_size() for t in param_leaves(params))
+    crt = cluster_runtime()
+
+    def trainer(**kw):
+        return RLHFTrainer(RLHFConfig(
+            model=cfg, params=params, seed=SEED, num_rollout_workers=2,
+            remote_learner=True, runtime=crt,
+            worker_cls=cluster_rlhf_worker(), **RLHF_350M, **kw))
+
+    def row_of(tr, m, step_s):
+        r = m["rollout"]
+        return {"step_s": step_s, "rollout_s": r["gen_s_max"],
+                "swap_ms": swap_ms(crt, tr.workers),
+                "completion_tokens": r["rollout_tokens"],
+                "rollout_tokens_per_s": r["rollout_tokens"]
+                / r["gen_s_max"],
+                "update_s": m["update_s"],
+                "weight_sync_ms": m["step_weight_sync_ms"],
+                "versions": wait_swapped(crt, tr.workers, m["version"]),
+                "loss": m["loss"]}
+
+    t0 = time.perf_counter()
+    tr = trainer()
+    build_s = time.perf_counter() - t0
+    try:
+        pids = {"learner": crt.get(tr.learner.where.remote()),
+                "workers": [crt.get(w.where.remote()) for w in tr.workers]}
+        t0 = time.perf_counter()
+        m = tr.step()                                    # warm-up
+        warm = row_of(tr, m, time.perf_counter() - t0)
+        first = first_step(crt, tr, m)
+        crt.get(tr.workers[0].zero_counts.remote())
+        tracing.harvest(clear_buffers=True, timeout=120.0)
+        steps = []
+        for _ in range(n_timed):
+            t0 = time.perf_counter()
+            m = tr.step()
+            steps.append(row_of(tr, m, time.perf_counter() - t0))
+        launches = crt.get(tr.workers[0].counts.remote())
+        spans, diag = tracing.harvest(timeout=120.0, with_diagnostics=True)
+        syncs = [sync_split(spans, s["tid"]) for s in spans
+                 if s["name"] == "rl.weight_sync"]
+        names = sorted({s["name"] for s in spans})
+        tokens_all = warm["completion_tokens"] + sum(
+            s_["completion_tokens"] for s_ in steps)
+        deadline = time.monotonic() + 30.0
+        while True:
+            counted = flushed_counter("rl_rollout_tokens")
+            if sum(counted.values()) >= tokens_all or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        stats = tr.stats()
+    finally:
+        tr.shutdown()
+        del tr
+        gc.collect()
+
+    # One crash run at 2 steps: a rollout actor killed at rollout entry
+    # (`rl.rollout_step` crash) takes its whole process down, which on
+    # this runtime is the device worker with every actor of the topology.
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_cluster_rlhf_")
+    tr = trainer(checkpoint_every=1, checkpoint_dir=ckpt)
+    try:
+        tr.step()
+        tr.flush_checkpoints()
+        crt.get(tr.workers[0].arm.remote("rl.rollout_step", "nth:1+crash"))
+        t0 = time.perf_counter()
+        m = tr.step()
+        crash = {"step_s": time.perf_counter() - t0,
+                 "version": m["version"],
+                 "rollout_regens": m["rollout_regens"],
+                 "learner_restarts": m["learner_restarts"],
+                 "loss_finite": math.isfinite(m["loss"]),
+                 "worker_versions": wait_swapped(crt, tr.workers,
+                                                 tr.stats()["version"]),
+                 "version_after": tr.stats()["version"],
+                 "pids_after": [crt.get(w.where.remote())
+                                for w in tr.workers]}
+    finally:
+        tr.shutdown()
+        del tr
+        gc.collect()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+
+    def mean(key):
+        return sum(s_[key] for s_ in steps) / len(steps)
+
+    tok_same = len(first["tokens"]) == len(local_first["tokens"]) and all(
+        np.array_equal(a, b) for a, b in zip(first["tokens"],
+                                             local_first["tokens"]))
+    metric_diff = {k: abs(first["metrics"][k] - local_first["metrics"][k])
+                   for k in FIRST_STEP_KEYS}
+    adv_diff = float(np.abs(first["advantages"]
+                            - local_first["advantages"]).max())
+    want = ("paged_decode_attention", "flash_attention_fwd/wgmma",
+            "flash_attention_bwd_dq/wgmma", "flash_attention_bwd_dkv/wgmma")
+    row = {"phase": "cluster_rlhf_actors_350m", "card": card,
+           "model": "bench-350m", "dtype": "bfloat16", "workers": 2,
+           "remote_learner": True, "runtime": "ClusterRuntime",
+           "config": dict(RLHF_350M), "build_s": build_s,
+           "pids": {**pids, "device_worker": device_pid,
+                    "driver": os.getpid()},
+           "warmup_step": warm, "steps": steps,
+           "mean": {k: mean(k) for k in (
+               "step_s", "rollout_s", "rollout_tokens_per_s", "update_s",
+               "weight_sync_ms")},
+           "packed_bytes": packed, "syncs": syncs,
+           "first_step": {"tokens_equal": bool(tok_same),
+                          "metrics_abs_diff": metric_diff,
+                          "advantages_abs_diff": adv_diff,
+                          "rollout_tokens": [first["rollout_tokens"],
+                                             local_first["rollout_tokens"]]},
+           "launches": {k: launches.get(k) for k in launches},
+           "launches_local_runtime": {k: local.get(k) for k in want},
+           "harvested_span_names": names,
+           "harvest_dropped": diag["dropped_total"],
+           "harvest_errors": diag["errors"],
+           "rl_rollout_tokens_flushed": counted,
+           "completion_tokens_all_steps": tokens_all,
+           "stats": {k: stats[k] for k in ("weight_syncs", "epoch",
+                                           "rollout_regens")},
+           "crash_rollout_worker": crash}
+    emit(row)
+    if (pids["learner"] != device_pid
+            or pids["workers"] != [device_pid] * 2):
+        raise AssertionError(f"cluster_rlhf_actors_350m: pids {pids}")
+    if not tok_same or max(metric_diff.values()) > 1e-4 \
+            or adv_diff > 1e-4:
+        raise AssertionError(f"cluster_rlhf_actors_350m: first step "
+                             f"{row['first_step']}")
+    if any(launches.get(k) != local.get(k) for k in want) \
+            or any(launches.get(k) for k in launches if k.endswith("/fma")):
+        raise AssertionError(f"cluster_rlhf_actors_350m: launches "
+                             f"{launches} against {local}")
+    if packed != 889_292_800 or len(syncs) != n_timed \
+            or any(len(x["pack_ms"]) != 1 or len(x["broadcast_ms"]) != 3
+                   for x in syncs):
+        raise AssertionError(f"cluster_rlhf_actors_350m: syncs {syncs}")
+    for s_ in steps + [warm]:
+        if s_["versions"] != [s_["versions"][0]] * 2 or \
+                not math.isfinite(s_["loss"]):
+            raise AssertionError(f"cluster_rlhf_actors_350m: step {s_}")
+    if sum(counted.values()) != tokens_all:
+        raise AssertionError(f"cluster_rlhf_actors_350m: rl_rollout_tokens "
+                             f"{counted} against {tokens_all}")
+    if (crash["rollout_regens"] < 1 or not crash["loss_finite"]
+            or crash["worker_versions"] != [crash["version_after"]] * 2
+            or crash["version_after"] < 1
+            or len(set(crash["pids_after"])) != 1):
+        raise AssertionError(f"cluster_rlhf_actors_350m: crash {crash}")
+    return launches
+
+
 def rel_diff(a, b) -> float:
     a, b = float(a), float(b)
     if a != a and b != b:
@@ -4981,7 +5408,7 @@ def main() -> int:
     mesh_small = phase_rlhf_mesh_small()
     mesh350 = phase_rlhf_mesh_learner_350m(card)
     actors_small = phase_rlhf_actors_small()
-    actors = phase_rlhf_actors_350m(card, rlhf_mean)
+    actors, actors_first = phase_rlhf_actors_350m(card, rlhf_mean)
     gc.collect()
     torch.cuda.empty_cache()
     moe_small = phase_moe_small()
@@ -5008,6 +5435,9 @@ def main() -> int:
         phase_cluster_core(card)
         cluster_rollout, device_pid = phase_cluster_rollout_350m(card)
         phase_cluster_rl_cartpole(card, device_pid)
+        phase_cluster_collective(card, device_pid)
+        cluster_rlhf = phase_cluster_rlhf_actors_350m(
+            card, device_pid, actors, actors_first)
     finally:
         ray_tpu_torch.shutdown()
 
@@ -5136,6 +5566,12 @@ def main() -> int:
         cluster_rollout["paged_decode_attention"]
     kernels[1]["launches_cluster_rollout_350m"] = \
         cluster_rollout["flash_attention_fwd/wgmma"]
+    # The RLHF actor topology in the device worker, counted there.
+    for i, name in ((0, "paged_decode_attention"),
+                    (1, "flash_attention_fwd/wgmma"),
+                    (3, "flash_attention_bwd_dq/wgmma"),
+                    (5, "flash_attention_bwd_dkv/wgmma")):
+        kernels[i]["launches_cluster_rlhf_actors_350m"] = cluster_rlhf[name]
     kernels[0]["launches_serve_8b_observed"] = \
         observed["paged_decode_attention"]
     kernels[1]["launches_serve_8b_observed"] = \

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextvars
 import threading
 from dataclasses import dataclass, field
 from typing import Any
@@ -22,6 +23,21 @@ from typing import Any
 # (at-most-once for stateful actors); it gets an explicit "reply
 # evicted" error instead of a silently double-applied side effect.
 REPLY_EVICTED = "reply-evicted"
+
+# The actor whose code runs in this thread or task.  One process may host
+# many actors (the device worker hosts every "GPU" actor of its host), so
+# the process-global `CoreWorker.current_actor_id` names only the last
+# one built; each actor's executor threads carry their own actor's id
+# here (set by the pool's initializer), and so do its constructor and
+# its async methods' tasks.  `runtime_context.get_actor_id()` reads it.
+EXECUTING_ACTOR: contextvars.ContextVar = contextvars.ContextVar(
+    "ray_tpu_torch_executing_actor", default=None)
+
+
+def _pool(max_workers: int, actor_id: str, prefix: str):
+    return concurrent.futures.ThreadPoolExecutor(
+        max_workers=max_workers, thread_name_prefix=prefix,
+        initializer=EXECUTING_ACTOR.set, initargs=(actor_id,))
 
 
 @dataclass
@@ -88,9 +104,8 @@ class ActorInstance:
         self._async_default_limit = max_concurrency or 1000
         max_concurrency = max_concurrency or 1
         self.max_concurrency = max_concurrency
-        self.executor = concurrent.futures.ThreadPoolExecutor(
-            max_workers=max_concurrency,
-            thread_name_prefix=f"actor-{actor_id[:12]}")
+        self.executor = _pool(max_concurrency, actor_id,
+                              f"actor-{actor_id[:12]}")
         # Named concurrency groups (ray: concurrency_group_manager.cc):
         # each group gets its own executor (sync actors) / semaphore
         # (async actors) so one saturated group never gates another.
@@ -99,10 +114,9 @@ class ActorInstance:
         self.method_groups = dict(method_groups or {})
         self.group_executors: dict[str, Any] = {}
         for name, limit in self.concurrency_groups.items():
-            self.group_executors[name] = \
-                concurrent.futures.ThreadPoolExecutor(
-                    max_workers=max(1, int(limit)),
-                    thread_name_prefix=f"actor-{actor_id[:12]}-{name}")
+            self.group_executors[name] = _pool(
+                max(1, int(limit)), actor_id,
+                f"actor-{actor_id[:12]}-{name}")
         # Async actors: per-group semaphores, created lazily ON the loop.
         self._group_sems: dict[str, asyncio.Semaphore] = {}
         # Per-caller ordered delivery (ray: ActorSchedulingQueue seq_nos).

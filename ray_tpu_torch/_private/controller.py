@@ -796,7 +796,7 @@ class Controller:
         (a driver-resident engine's series live nowhere else)."""
         raise NotImplementedError(
             "the telemetry timeline is not ported yet (ROADMAP.md queue 1: "
-            "the tracing and metric faces)")
+            "the telemetry timeline)")
 
     async def rpc_memory(self, h: dict, _b: list) -> dict:
         """Cluster-wide object-ledger harvest: this controller's ledger

@@ -1020,7 +1020,7 @@ class NodeAgent:
     async def rpc_telemetry(self, h: dict, _b: list) -> dict:
         raise NotImplementedError(
             "the telemetry timeline is not ported yet (ROADMAP.md queue 1: "
-            "the tracing and metric faces)")
+            "the telemetry timeline)")
 
     def _leak_scan(self) -> dict:
         """One leak-sentinel pass (memledger.sentinel_scan over this

@@ -200,6 +200,123 @@ def put_breakdown_us(rec: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------- collective tracer
+# Per-collective phase and byte accounting, as the hop and put tracers:
+# opt-in, one collective at a time per process, one `is not None` check
+# per collective when disarmed.  A collective's phases REPEAT per hop
+# (send/pull/reduce x (world-1) steps x pipeline chunks), so the record
+# carries accumulated durations and byte counters, not a stamp order:
+#
+#   schedule      "ring" | "tree"
+#   op/bytes/world/rank/seq   what ran
+#   sent_bytes    payload bytes this rank put or deposited (a ring
+#                 allreduce's is 2*N*(world-1)/world)
+#   recv_bytes    payload bytes this rank pulled or took
+#   send_us/pull_us/reduce_us/wait_us   accumulated phase time; pulls run
+#                 on the prefetch pool, so the sums can exceed total_us
+#   hops          transport steps this rank took
+COLLECTIVE_PHASES = ("send_us", "pull_us", "reduce_us", "wait_us")
+
+_collective_armed: bool = False
+_collective_last: dict | None = None
+
+
+def arm_collective_trace() -> None:
+    """One-shot: trace the next collective op in this process."""
+    global _collective_armed
+    _collective_armed = True
+
+
+def blank_collective_rec() -> dict:
+    """A live phase-accumulator record (the consume_collective_arm
+    shape), which the always-on per-op collective spans hand to the
+    schedules when no one-shot trace is armed."""
+    return {"t0": time.monotonic(), "sent_bytes": 0, "recv_bytes": 0,
+            "send_us": 0.0, "pull_us": 0.0, "reduce_us": 0.0,
+            "wait_us": 0.0, "hops": 0}
+
+
+def consume_collective_arm() -> dict | None:
+    """Claim the armed trace (the collective module calls it at op
+    entry); returns a live record the schedule mutates in place."""
+    global _collective_armed
+    if not _collective_armed:
+        return None
+    _collective_armed = False
+    return blank_collective_rec()
+
+
+def publish_collective_trace(rec: dict) -> None:
+    global _collective_last
+    rec["total_us"] = round((time.monotonic() - rec.pop("t0")) * 1e6, 1)
+    _collective_last = dict(rec)
+    # The armed record also lands in the merged timeline.
+    try:
+        from ray_tpu_torch._private import spans
+
+        if spans.ENABLED:
+            t1 = time.time()
+            spans.emit(
+                "collective.trace", t1 - rec["total_us"] / 1e6, t1,
+                attrs={k: rec[k] for k in
+                       ("schedule", "op", "bytes", "world", "rank",
+                        "hops", "sent_bytes", "recv_bytes", "send_us",
+                        "pull_us", "reduce_us", "wait_us") if k in rec})
+    except Exception:  # noqa: BLE001 - tracing must never fail an op
+        pass
+
+
+def take_collective_trace() -> dict | None:
+    """The most recent completed collective trace, cleared on read."""
+    global _collective_last
+    trace, _collective_last = _collective_last, None
+    return trace
+
+
+@contextmanager
+def collective_trace():
+    """Trace ONE collective's phase and byte breakdown:
+
+        with profiling.collective_trace() as rec:
+            collective.allreduce(x, group_name="g")
+        table = profiling.collective_breakdown_us(rec)
+
+    The yielded dict gains "phases" when the block exits; feed it to
+    `collective_breakdown_us`."""
+    global _collective_armed
+    rec: dict = {}
+    arm_collective_trace()
+    try:
+        yield rec
+    finally:
+        rec["phases"] = take_collective_trace()
+        _collective_armed = False
+
+
+def collective_breakdown_us(rec: dict) -> dict:
+    """Flat phase table of a completed `collective_trace` record:
+    accumulated microseconds per phase, the byte counters and the
+    schedule.  Empty when no collective fired."""
+    phases = dict(rec.get("phases") or {})
+    if not phases:
+        return {}
+    out: dict = {}
+    for key in ("schedule", "op", "bytes", "world", "rank", "hops",
+                "sent_bytes", "recv_bytes"):
+        if key in phases:
+            out[key] = phases[key]
+    for key in COLLECTIVE_PHASES:
+        if phases.get(key):
+            out[key] = round(phases[key], 1)
+    if "total_us" in phases:
+        out["total_us"] = phases["total_us"]
+        if phases.get("bytes"):
+            out["gib_per_s"] = round(
+                phases["bytes"] / (phases["total_us"] / 1e6) / (1 << 30),
+                3)
+    return out
+
+
 @contextmanager
 def profile(event_name: str, extra_data: dict | None = None):
     """Record a named span attributed to the current task (or the driver).

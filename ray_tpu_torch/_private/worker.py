@@ -58,7 +58,8 @@ from ray_tpu_torch.exceptions import (ActorDiedError, ActorError,
                                       TaskCancelledError, TaskError)
 from ray_tpu_torch.object_ref import ObjectRef, set_release_hook
 
-from ray_tpu_torch._private.actor_state import (REPLY_EVICTED,
+from ray_tpu_torch._private.actor_state import (EXECUTING_ACTOR,
+                                          REPLY_EVICTED,
                                           ActorInstance,
                                           ActorSubmitState,
                                           StreamState)
@@ -2471,7 +2472,11 @@ class CoreWorker:
             self.current_actor_id = h["actor_id"]
 
             def _construct():
-                return cls(*args, **kwargs)
+                token = EXECUTING_ACTOR.set(h["actor_id"])
+                try:
+                    return cls(*args, **kwargs)
+                finally:
+                    EXECUTING_ACTOR.reset(token)
             if is_async:
                 instance = _construct()
             else:
@@ -2831,6 +2836,7 @@ class CoreWorker:
                 # its own contextvars copy instead, so nested handle
                 # calls / recorder spans continue THIS request's trace.
                 spans.adopt_task_trace(h.get("trace"))
+                EXECUTING_ACTOR.set(inst.actor_id)
 
                 async def _invoke():
                     return await method(*args, **kwargs)
@@ -3637,7 +3643,7 @@ class CoreWorker:
         THIS process's metrics-snapshot ring."""
         raise NotImplementedError(
             "the telemetry timeline is not ported yet (ROADMAP.md queue 1: "
-            "the tracing and metric faces)")
+            "the telemetry timeline)")
 
     # ------------------------------------------------------------ telemetry
     def _record_event(self, task_id: str, state: str, name: str = "",

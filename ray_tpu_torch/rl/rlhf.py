@@ -85,7 +85,10 @@ are `train/checkpoint.py`'s torch format.  The learner's metrics carry
 the slowest worker's generation).  The rollout metrics and the engines'
 observability go through the runtime (rl/rollout_llm.py, serve/llm.py).
 `device` (an added config field) places the learner and the engines: CUDA
-unless "cpu" is asked for.
+unless "cpu" is asked for; on CUDA the learner and rollout actors ask the
+runtime for a share of "GPU" besides the reference's `num_cpus=1`
+(`RLHFTrainer._placement`), since the port's cluster gives CUDA only to
+its device worker.
 """
 from __future__ import annotations
 
@@ -603,13 +606,27 @@ class RLHFTrainer:
     def _worker_cls(self):
         return self.cfg.worker_cls or rollout_llm.LLMRolloutWorker
 
+    def _placement(self) -> dict:
+        """Actor options of the learner and the rollout workers: one CPU
+        each, as the reference's, and where the config runs on CUDA a
+        share of "GPU" too, so that a cluster places them where the card
+        is (the port's device worker; a plain worker sees no CUDA device,
+        and an actor that cannot reach one raises at construction).  The
+        shares of the whole topology add up to half a card, so a full set
+        of replacements fits beside actors not yet reaped."""
+        opts = {"num_cpus": 1}
+        if torch.device(self.cfg.device or "cuda").type == "cuda":
+            opts["num_gpus"] = 1 / (2 * (1 + self.cfg.num_rollout_workers))
+        return opts
+
     def _spawn_learner(self):
         return self._rt.remote(self._learner_cls()).options(
-            num_cpus=1).remote(self.cfg)
+            **self._placement()).remote(self.cfg)
 
     def _spawn_worker(self, i: int):
         return self._rt.remote(self._worker_cls()).options(
-            num_cpus=1, max_concurrency=4).remote(**self._worker_kwargs(i))
+            max_concurrency=4, **self._placement()).remote(
+                **self._worker_kwargs(i))
 
     def _build_learner(self) -> None:
         if self.cfg.remote_learner and self._local:

@@ -99,14 +99,26 @@ class RuntimeContext:
 
 
 def get_runtime_context() -> RuntimeContext:
+    """The context of the calling code.  Its actor id is that of the actor
+    whose method (or constructor) runs in this thread or task; a process
+    hosting many actors (the device worker) tells them apart this way.
+    In a thread the actor started itself it is the process's one actor,
+    as in the reference, where an actor is a process; where the process
+    hosts several, such a thread is no actor's (None), since it cannot be
+    told which one started it."""
+    from ray_tpu_torch._private.actor_state import EXECUTING_ACTOR
     from ray_tpu_torch._private.worker import global_worker
 
     core = global_worker()
+    actor_id = EXECUTING_ACTOR.get()
+    if actor_id is None:
+        hosted = list(core.actors_hosted)
+        actor_id = hosted[0] if len(hosted) == 1 else None
     return RuntimeContext(
         job_id=core.job_id,
         node_id=core.node_id,
         worker_id=core.worker_id,
-        actor_id=core.current_actor_id,
+        actor_id=actor_id,
         task_id=core.current_task_id,
         namespace=core.namespace,
         trace_context=core.current_trace,

@@ -75,6 +75,8 @@ import re
 import threading
 import time
 
+from ray_tpu_torch.utils import metrics as um
+
 NO_CLUSTER = (
     "no runtime to {what}: ServeRuntime() is a process outside any "
     "cluster; pass a LocalRuntime (one process) or a binding to a "
@@ -465,90 +467,6 @@ def _attrs(attrs: dict | None) -> dict:
     return out
 
 
-class _Metric:
-    """One metric of a Recorder: values per tag tuple, the reference's
-    `ray_tpu.utils.metrics.Metric` semantics."""
-
-    kind = "metric"
-
-    def __init__(self, name: str, description: str, tag_keys: tuple):
-        self.name = name
-        self.description = description
-        self.tag_keys = tuple(tag_keys)
-        self._values: dict[tuple, float] = {}
-        self._lock = threading.Lock()
-
-    def _key(self, tags: dict | None) -> tuple:
-        unknown = set(tags or {}) - set(self.tag_keys)
-        if unknown:
-            raise ValueError(f"unknown tag keys {unknown}; declared "
-                             f"{self.tag_keys}")
-        return tuple((tags or {}).get(k, "") for k in self.tag_keys)
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            return {"name": self.name, "description": self.description,
-                    "type": self.kind, "tag_keys": list(self.tag_keys),
-                    "values": [{"tags": dict(zip(self.tag_keys, k)),
-                                "value": v}
-                               for k, v in self._values.items()]}
-
-
-class _Counter(_Metric):
-    kind = "counter"
-
-    def inc(self, value: float = 1.0, tags: dict | None = None) -> None:
-        if value < 0:
-            raise ValueError("counters only increase")
-        k = self._key(tags)
-        with self._lock:
-            self._values[k] = self._values.get(k, 0.0) + value
-
-
-class _Gauge(_Metric):
-    kind = "gauge"
-
-    def set(self, value: float, tags: dict | None = None) -> None:
-        k = self._key(tags)
-        with self._lock:
-            self._values[k] = float(value)
-
-
-class _Histogram(_Metric):
-    kind = "histogram"
-
-    def __init__(self, name, description, tag_keys, boundaries=None):
-        super().__init__(name, description, tag_keys)
-        self.boundaries = sorted(boundaries or
-                                 [0.001, 0.01, 0.1, 1.0, 10.0, 100.0])
-        self._counts: dict[tuple, list[int]] = {}
-
-    def observe(self, value: float, tags: dict | None = None) -> None:
-        k = self._key(tags)
-        with self._lock:
-            counts = self._counts.setdefault(
-                k, [0] * (len(self.boundaries) + 1))
-            i = 0
-            while i < len(self.boundaries) and value > self.boundaries[i]:
-                i += 1
-            counts[i] += 1
-            # As the reference's snapshot: "value" is the running sum.
-            self._values[k] = self._values.get(k, 0.0) + value
-
-    def snapshot(self) -> dict:
-        out = super().snapshot()
-        with self._lock:
-            out["boundaries"] = list(self.boundaries)
-            out["counts"] = [{"tags": dict(zip(self.tag_keys, k)),
-                              "counts": list(c)}
-                             for k, c in self._counts.items()]
-        return out
-
-
-_METRIC_KINDS = {"counter": _Counter, "gauge": _Gauge,
-                 "histogram": _Histogram}
-
-
 class Recorder:
     """One process's spans, metrics and memory providers: a bounded span
     ring (SPAN_CAPACITY records, the reference's default; older ones are
@@ -568,7 +486,7 @@ class Recorder:
         self._ctx = contextvars.ContextVar(f"recorder_ctx_{id(self):x}",
                                            default=None)
         self._lock = threading.Lock()
-        self._metrics: dict[str, _Metric] = {}
+        self._metrics: dict = {}        # name -> um.Metric
         self._providers: dict = {}
         self._tags: dict[tuple, int] = {}
 
@@ -626,28 +544,15 @@ class Recorder:
 
     # ------------------------------------------------------------ metrics
     def metric(self, kind: str, name: str, description: str = "",
-               tag_keys: tuple = (), boundaries=None) -> _Metric:
-        cls = _METRIC_KINDS.get(kind)
-        if cls is None:
-            raise ValueError(f"metric kind {kind!r}: want one of "
-                             f"{sorted(_METRIC_KINDS)}")
-        with self._lock:
-            m = self._metrics.get(name)
-            if m is None:
-                m = cls(name, description, tag_keys) if cls is not \
-                    _Histogram else cls(name, description, tag_keys,
-                                        boundaries)
-                self._metrics[name] = m
-        if type(m) is not cls:
-            raise TypeError(f"metric {name!r} already registered as "
-                            f"{m.kind}, requested {kind}")
-        return m
+               tag_keys: tuple = (), boundaries=None):
+        """This recorder's metric `name` (`ray_tpu_torch.utils.metrics`'
+        classes, kept in this recorder's registry, not flushed)."""
+        return um.of_kind(kind, name, description, tag_keys, boundaries,
+                          registry=self._metrics)
 
     def metrics(self) -> dict[str, dict]:
         """Every metric's snapshot, by name."""
-        with self._lock:
-            ms = list(self._metrics.values())
-        return {m.name: m.snapshot() for m in ms}
+        return {s["name"]: s for s in um.registry_snapshots(self._metrics)}
 
     # ------------------------------------------------------ memory ledger
     def register_provider(self, key: str, rows_fn) -> None:
@@ -984,11 +889,15 @@ class ClusterRuntime(ServeRuntime):
     It binds the object plane (`put`, `get`, `is_ref`), the actor face
     (`remote`, `kill`: a `num_gpus` actor runs in the node's device
     worker, any other in a plain worker that sees no CUDA device), the
-    failpoint hook (`_private/failpoints.py`) and the memory-ledger face
-    (`_private/memledger.py`).  The serve faces, the collective face, the
-    tracing face and the metric face belong to later slices of the port
-    and raise NotImplementedError naming them.  It holds no state, so it
-    pickles into actors."""
+    collective face (`collective/collective.py`: groups over the object
+    plane, one member per actor, so members in the device worker keep
+    their own ranks), the failpoint hook (`_private/failpoints.py`), the
+    tracing face (`tracing.py`, the process's flight recorder, harvested
+    cluster-wide by `ray_tpu_torch.tracing.harvest()`), the metric face
+    (`utils/metrics.py`, flushed to the controller's KV) and the
+    memory-ledger face (`_private/memledger.py`).  The serve faces belong
+    to a later slice of the port and raise NotImplementedError naming it.
+    It holds no state, so it pickles into actors."""
 
     # ---------------------------------------------------------- objects
     def put(self, value):
@@ -1030,21 +939,32 @@ class ClusterRuntime(ServeRuntime):
     # ------------------------------------------------------ collectives
     def init_collective_group(self, world_size: int, rank: int,
                               group_name: str = "default") -> None:
-        _later("collective face", "collectives over the object plane")
+        from ray_tpu_torch.collective import collective
+
+        collective.init_collective_group(world_size, rank, "object_store",
+                                         group_name)
 
     def get_rank(self, group_name: str = "default") -> int:
-        _later("collective face", "collectives over the object plane")
+        from ray_tpu_torch.collective import collective
+
+        return collective.get_rank(group_name)
 
     def deregister_collective_group(self, group_name: str) -> None:
-        _later("collective face", "collectives over the object plane")
+        from ray_tpu_torch.collective import collective
+
+        collective.deregister_collective_group(group_name)
 
     def destroy_collective_group(self, group_name: str,
                                  reason: str | None = None) -> None:
-        _later("collective face", "collectives over the object plane")
+        from ray_tpu_torch.collective import collective
+
+        collective.destroy_collective_group(group_name, reason=reason)
 
     def broadcast_async(self, payload, src_rank: int,
                         group_name: str = "default"):
-        _later("collective face", "collectives over the object plane")
+        from ray_tpu_torch.collective import collective
+
+        return collective.broadcast_async(payload, src_rank, group_name)
 
     # ------------------------------------------------------------ hooks
     def failpoint(self, site: str) -> None:
@@ -1055,24 +975,34 @@ class ClusterRuntime(ServeRuntime):
 
     # ---------------------------------------------------------- tracing
     def tracing_enabled(self) -> bool:
-        _later("tracing face", "the tracing and metric faces")
+        from ray_tpu_torch import tracing
+
+        return tracing.ENABLED
 
     def trace_capture(self):
-        _later("tracing face", "the tracing and metric faces")
+        from ray_tpu_torch import tracing
+
+        return tracing.capture()
 
     def trace_current(self):
-        _later("tracing face", "the tracing and metric faces")
+        from ray_tpu_torch import tracing
+
+        return tracing.current()
 
     def emit(self, name, t0, t1=None, ctx=None, attrs=None) -> None:
-        _later("tracing face", "the tracing and metric faces")
+        from ray_tpu_torch import tracing
+
+        tracing.emit(name, t0, t1, ctx=ctx, attrs=attrs)
 
     def span(self, name: str, attrs: dict | None = None, ctx=None):
-        _later("tracing face", "the tracing and metric faces")
+        from ray_tpu_torch import tracing
+
+        return tracing.span(name, attrs=attrs, ctx=ctx)
 
     # ---------------------------------------------------------- metrics
     def metric(self, kind, name, description="", tag_keys=(),
                boundaries=None):
-        _later("metric face", "the tracing and metric faces")
+        return um.of_kind(kind, name, description, tag_keys, boundaries)
 
     # ---------------------------------------------------- memory ledger
     def register_provider(self, key, rows_fn) -> None:
