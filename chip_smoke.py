@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve-alone   # phases 1, 4c and 25 only
 
 Phases, each printing one JSON line; any failure raises and exits 1:
 
@@ -80,7 +81,9 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  both engines prefill it as one wave (bf16 tokens depend
                  on the prefill's shapes).  A second pair of waves on fresh
                  prompts, sent as they come, gives tokens/s and TTFT
-                 through the server against the bare engine.  (c) A
+                 through the server against the bare engine (the server
+                 wave's launches counted), then two more prompts go to
+                 the server one at a time, for 25.  (c) A
                  `reconfigure` to K 4 rebuilds the engine and serves a
                  bare K-4 engine's tokens; after `shutdown`, `kv_check`
                  passes.  (b) PD, built after (a) is freed: a prefill-role
@@ -414,8 +417,29 @@ Phases, each printing one JSON line; any failure raises and exits 1:
                  the topology; the step recovers (rollout_regens and
                  learner_restarts reported, the actors respawned in one
                  new device worker, both engines at the learner's
-                 version).  The runtime is shut down on every exit of
-                 phases 20-24.
+                 version).
+  25. cluster_serve_8b -- `LLMServer("llama3-8b", seed, max_batch 8,
+                 page 512)` deployed on the port's serve
+                 (`ray_tpu_torch.serve`: `serve.start`, `serve.run`, a
+                 `DeploymentHandle`) as one `num_gpus=1` replica; it
+                 builds its own weights from the seed, so they equal 4c's.
+                 The replica must run in the device worker's pid (a
+                 DeviceProbe read just before the deploy) on CUDA and
+                 reach RUNNING within the controller's 120 s init
+                 deadline (the controller's span from the replica's
+                 creation to RUNNING, the server's build inside it, and
+                 reserved memory reported).  After a
+                 warm-up request, two fresh prompts sent one at a time
+                 (64 new tokens, greedy) must give 4c's tokens for the
+                 same prompts bit for bit; then 4c's eight prompts sent
+                 at once through the handle must each return 64 tokens
+                 (tokens/s and each TTFT beside 4c's fresh wave), with the
+                 paged and bf16 flash launches counted in the replica
+                 (zeroed there before the wave) nonzero and no f32 flash
+                 launch, and `replica_metrics` reporting the server's
+                 completed count.  `serve.delete` and `serve.shutdown`
+                 must leave no controller and no replica.  The runtime is
+                 shut down on every exit of phases 20-25.
 
 Phase `kernels` also holds the flash forward and backward at the Mixtral
 layer's shape ([2, 4096, 32, 8, 128], bf16, timed) and at the ViT-B/16
@@ -1496,6 +1520,13 @@ def wave_row(res, wave_s) -> dict:
             "ttft_s": {"min": min(ttft), "max": max(ttft)}}
 
 
+def alone_prompts(vocab: int) -> list:
+    """Two prompts sent one at a time to the in-process 8B server (4c) and
+    to the serve replica (25), sharing no page with any other request."""
+    rng = np.random.default_rng(SEED + 25)
+    return [rng.integers(1, vocab, size=n).tolist() for n in (333, 777)]
+
+
 def phase_serve_8b_server(card, cfg, params, device="cuda"):
     """LLMServer on `cfg` in bf16 with `params` (see 4c in the module
     docstring)."""
@@ -1537,11 +1568,18 @@ def phase_serve_8b_server(card, cfg, params, device="cuda"):
         launches_a = launch_counts()
         s1 = srv.stats()
         bare_held, _ = engine_wave(bare, prompts, new, hold=True)
+        zero_serve_counts()
         srv_t, srv_s = server_wave(
             srv, [{"prompt": p, "max_new_tokens": new} for p in fresh])
+        torch.cuda.synchronize()
+        launches_fresh = launch_counts()
         bare_t, bare_s = engine_wave(bare, fresh, new)
         bare.stop()
         del bare
+        # The requests phase cluster_serve_8b sends its replica one at a
+        # time, here one at a time to the same server (K 8).
+        alone = [call(srv, {"prompt": p, "max_new_tokens": new})["tokens"]
+                 for p in alone_prompts(V)]
         # (c) reconfigure: K 4 rebuilds the engine.
         old = srv.engine
         srv.reconfigure({"steps_per_sync": 4})
@@ -1613,6 +1651,7 @@ def phase_serve_8b_server(card, cfg, params, device="cuda"):
                "stream_tokens": len(streamed),
                "server": wave_row(srv_t, srv_s),
                "bare_engine": wave_row(bare_t, bare_s),
+               "fresh_wave_launches": launches_fresh,
                "held_wave_server_ttft_s": [r["ttft_s"] for r in held],
                "decode_windows": windows_a, "graph_replays": replays_a,
                "launches": launches_a},
@@ -1667,7 +1706,13 @@ def phase_serve_8b_server(card, cfg, params, device="cuda"):
             raise AssertionError(
                 f"serve_8b_server {name}: windows {windows}, replays "
                 f"{replays}, launches {launches}")
-    return {"unified": launches_a, "pd": launches_b}
+    if not all(len(t) == new for t in alone):
+        raise AssertionError(f"serve_8b_server: alone {alone}")
+    fresh_wave = {**wave_row(srv_t, srv_s),
+                  "ttft_each_s": [r["ttft_s"] for r in srv_t],
+                  "launches": launches_fresh}
+    return ({"unified": launches_a, "pd": launches_b},
+            {"alone_tokens": alone, "fresh_wave": fresh_wave})
 
 
 def phase_serve_8b_dense(card, cfg, params):
@@ -5342,6 +5387,187 @@ def phase_cluster_rlhf_actors_350m(card, device_pid: int, local: dict,
     return launches
 
 
+def serve_replica():
+    """LLMServer of phase cluster_serve_8b: drops the device worker's
+    cached blocks before it builds, times its own construction, and
+    zeroes and reads the paged and flash launch counters of its own
+    process."""
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    class Counting(LLMServer):
+        def __init__(self, *a, **kw):
+            import os as _os
+            import time as _time
+
+            torch.cuda.empty_cache()
+            self.reserved_before_gb = torch.cuda.memory_reserved() / 1e9
+            t0 = _time.perf_counter()
+            super().__init__(*a, **kw)
+            torch.cuda.synchronize()
+            self.init_s = _time.perf_counter() - t0
+            self.pid = _os.getpid()
+
+        def zero_counts(self):
+            zero_serve_counts()
+
+        def counts(self):
+            torch.cuda.synchronize()
+            return launch_counts()
+
+        def where(self):
+            from ray_tpu_torch import serve as _serve
+
+            return {"pid": self.pid, "init_s": self.init_s,
+                    "replica_tag": _serve.get_replica_context().replica_tag,
+                    "device": str(self.engine.device),
+                    "reserved_before_gb": self.reserved_before_gb,
+                    "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
+    return Counting
+
+
+def phase_cluster_serve_8b(card, in_process: dict):
+    """`LLMServer` on the port's serve (see 25 in the module docstring);
+    `in_process` is 4c's second return value.  Boots the port's cluster
+    when none is up, so a short script can call it after 4c alone."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.actor import ActorHandle
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.controller import (CONTROLLER_NAME,
+                                                REPLICA_INIT_TIMEOUT_S)
+
+    cfg = llama.llama_configs()["llama3-8b"]
+    V, new = cfg.vocab_size, 64
+    rng = np.random.default_rng(SEED + 16)
+    prompts = [rng.integers(1, V, size=n).tolist() for n in MAIN_PROMPTS]
+    warm = rng.integers(1, V, size=300).tolist()
+    if not rt.is_initialized():
+        rt.init(object_store_memory=8 << 30)
+    # Where the device worker is, and what it holds, before the deploy.
+    probe = rt.remote(DeviceProbe).options(num_gpus=1).remote()
+    before = rt.get(probe.info.remote(), timeout=CLUSTER_T)
+    rt.kill(probe)
+
+    def call(h, *args, method=None):
+        if method is not None:
+            h = h.options(method_name=method)
+        return h.remote(*args).result(timeout_s=CLUSTER_T)
+
+    app = serve.deployment(serve_replica()).options(
+        name="llm", num_replicas=1,
+        ray_actor_options={"num_gpus": 1}).bind(
+            "llama3-8b", seed=SEED, max_batch=8, page_size=512)
+    t0 = time.perf_counter()
+    serve.start()
+    # Past the controller's init deadline the replica is replaced in a
+    # loop: the run's own deadline then fails the phase.
+    h = serve.run(app, name="llm8b", timeout_s=REPLICA_INIT_TIMEOUT_S + 30)
+    deploy_s = time.perf_counter() - t0
+    tag = None
+    try:
+        where = call(h, method="where")
+        tag = where["replica_tag"]
+        K = 8
+        call(h, {"prompt": warm, "max_new_tokens": K + 1})
+        alone = [call(h, {"prompt": p, "max_new_tokens": new})["tokens"]
+                 for p in alone_prompts(V)]
+        call(h, method="zero_counts")
+        t0 = time.perf_counter()
+        resps = [h.remote({"prompt": p, "max_new_tokens": new})
+                 for p in prompts]
+        res = [r.result(timeout_s=CLUSTER_T) for r in resps]
+        wave_s = time.perf_counter() - t0
+        launches = call(h, method="counts")
+        after = call(h, method="where")
+        rm = serve.replica_metrics("llm8b", deployment="llm")
+        (metrics,) = rm["llm8b"]["llm"].values()
+        status = serve.status()["llm8b"]
+    finally:
+        t0 = time.perf_counter()
+        serve.delete("llm8b")
+        serve.shutdown()
+        teardown_s = time.perf_counter() - t0
+
+    def gone(ref) -> bool:
+        try:
+            rt.get(ref, timeout=60.0)
+        except rt.ActorError:
+            return True
+        return False
+
+    controller_gone = False
+    try:
+        rt.get_actor(CONTROLLER_NAME)
+    except ValueError:
+        controller_gone = True
+    replica_gone = gone(ActorHandle(tag).get_queue_len.remote())
+    ref_wave = in_process["fresh_wave"]
+    # The controller's span from the replica's creation to RUNNING, the
+    # one its init deadline bounds; the build alone is `where["init_s"]`.
+    init_s = status["deployments"]["llm"]["replica_init_s"][tag[:12]]
+    want = ("paged_decode_attention", "flash_attention_fwd/wgmma")
+    row = {"phase": "cluster_serve_8b", "card": card, "model": "llama3-8b",
+           "dtype": "bfloat16", "max_batch": 8, "page_size": 512,
+           "steps_per_sync": K, "new_tokens_each": new,
+           "deploy_s": deploy_s, "replica_init_s": init_s,
+           "replica_init_deadline_s": REPLICA_INIT_TIMEOUT_S,
+           "replica_build_s": where["init_s"],
+           "pids": {"replica": where["pid"],
+                    "device_worker": before["pid"], "driver": os.getpid()},
+           "replica_device": where["device"],
+           "memory_gb": {"device_worker_reserved_before_deploy":
+                         before["reserved_gb"],
+                         "replica_reserved_before_init":
+                             where["reserved_before_gb"],
+                         "replica_reserved_after_init":
+                             where["reserved_gb"],
+                         "replica_reserved_after_wave":
+                             after["reserved_gb"],
+                         "driver_reserved":
+                             torch.cuda.memory_reserved() / 1e9},
+           "alone": {"prompt_tokens": [len(p) for p in alone_prompts(V)],
+                     "same_tokens_as_in_process": alone
+                         == in_process["alone_tokens"],
+                     "tokens": [len(t) for t in alone]},
+           "wave": {**wave_row(res, wave_s),
+                    "ttft_each_s": [r["ttft_s"] for r in res],
+                    "completed": [len(r["tokens"]) for r in res],
+                    "in_process_fresh_wave": ref_wave},
+           "launches": {"replica": launches,
+                        "in_process_fresh_wave": ref_wave["launches"]},
+           "user_stats_completed": metrics["user_stats"]["completed"],
+           "replica_metrics": {k: metrics[k] for k in (
+               "num_processed", "num_rejected", "max_ongoing")},
+           "status": status, "teardown_s": teardown_s,
+           "controller_gone": controller_gone,
+           "replica_gone": replica_gone}
+    emit(row)
+    if where["pid"] != before["pid"] or where["pid"] == os.getpid() \
+            or torch.device(where["device"]).type != "cuda" \
+            or not where["init_s"] <= init_s < REPLICA_INIT_TIMEOUT_S:
+        raise AssertionError(f"cluster_serve_8b: placement {row['pids']}, "
+                             f"init {where}")
+    if not row["alone"]["same_tokens_as_in_process"] \
+            or row["alone"]["tokens"] != [new, new]:
+        raise AssertionError(f"cluster_serve_8b: alone {alone} against "
+                             f"{in_process['alone_tokens']}")
+    if row["wave"]["completed"] != [new] * len(prompts) \
+            or row["user_stats_completed"] != 1 + 2 + len(prompts):
+        raise AssertionError(f"cluster_serve_8b: wave {row['wave']}, "
+                             f"completed {row['user_stats_completed']}")
+    if any(not launches.get(k) for k in want) \
+            or launches.get("flash_attention_fwd/fma") \
+            or launches["flash_attention_fwd/wgmma"] \
+            != launches["flash_attention_fwd"]:
+        raise AssertionError(f"cluster_serve_8b: launches {launches}")
+    if not (controller_gone and replica_gone):
+        raise AssertionError(f"cluster_serve_8b: teardown controller gone "
+                             f"{controller_gone}, replica gone "
+                             f"{replica_gone}")
+    return launches
+
+
 def rel_diff(a, b) -> float:
     a, b = float(a), float(b)
     if a != a and b != b:
@@ -5388,7 +5614,7 @@ def main() -> int:
     phase_serve_8b_engine(card, cfg8, params8)
     gc.collect()
     torch.cuda.empty_cache()
-    server = phase_serve_8b_server(card, cfg8, params8)
+    server, server_alone = phase_serve_8b_server(card, cfg8, params8)
     dense8 = phase_serve_8b_dense(card, cfg8, params8)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5438,6 +5664,9 @@ def main() -> int:
         phase_cluster_collective(card, device_pid)
         cluster_rlhf = phase_cluster_rlhf_actors_350m(
             card, device_pid, actors, actors_first)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cluster_serve = phase_cluster_serve_8b(card, server_alone)
     finally:
         ray_tpu_torch.shutdown()
 
@@ -5572,6 +5801,11 @@ def main() -> int:
                     (3, "flash_attention_bwd_dq/wgmma"),
                     (5, "flash_attention_bwd_dkv/wgmma")):
         kernels[i]["launches_cluster_rlhf_actors_350m"] = cluster_rlhf[name]
+    # The 8B LLMServer as a serve replica in the device worker.
+    kernels[0]["launches_cluster_serve_8b"] = \
+        cluster_serve["paged_decode_attention"]
+    kernels[1]["launches_cluster_serve_8b"] = \
+        cluster_serve["flash_attention_fwd/wgmma"]
     kernels[0]["launches_serve_8b_observed"] = \
         observed["paged_decode_attention"]
     kernels[1]["launches_serve_8b_observed"] = \
@@ -5605,9 +5839,42 @@ def main() -> int:
     return 0
 
 
+def serve_alone() -> int:
+    """`python3 chip_smoke.py --serve-alone`: the kernels' build, phase 4c
+    and then phase 25 (cluster_serve_8b) on its output, nothing else."""
+    import gc
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import ray_tpu_torch
+    from ray_tpu_torch import _kernels
+    from ray_tpu_torch.models import llama
+
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
+    emit({"phase": "device", "build_s": _kernels.build_all()})
+    cfg8 = llama.llama_configs()["llama3-8b"]
+    params8 = llama.init_params(
+        cfg8, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    _server, alone = phase_serve_8b_server(card, cfg8, params8)
+    del params8, _server
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        phase_cluster_serve_8b(card, alone)
+    finally:
+        ray_tpu_torch.shutdown()
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+    return 0
+
+
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = serve_alone() if sys.argv[1:] == ["--serve-alone"] else main()
     except BaseException:  # noqa: BLE001 - report, then fail the run
         traceback.print_exc()
         rc = 1

@@ -34,6 +34,15 @@ EXECUTING_ACTOR: contextvars.ContextVar = contextvars.ContextVar(
     "ray_tpu_torch_executing_actor", default=None)
 
 
+# The (task_id, trace header) of the call that runs in this thread or
+# task, None outside one: `CoreWorker.current_task_id` and
+# `current_trace` read it.  Each executor sets it around the call it runs
+# and resets it after, so a pool thread carries nothing into its next
+# call and two calls running at once keep their own traces.
+EXECUTING_TASK: contextvars.ContextVar = contextvars.ContextVar(
+    "ray_tpu_torch_executing_task", default=None)
+
+
 def _pool(max_workers: int, actor_id: str, prefix: str):
     return concurrent.futures.ThreadPoolExecutor(
         max_workers=max_workers, thread_name_prefix=prefix,

@@ -151,7 +151,8 @@ def task_trace_context() -> dict | None:
 def adopt_task_trace(trace: dict | None):
     """Install a task header's trace context into the current
     (async) execution context; returns a reset token (or None).  Sync
-    executor paths don't need this — they set worker.current_trace and
+    executor paths don't need this — they set the call's task context
+    (actor_state.EXECUTING_TASK, read as worker.current_trace) and
     `current()` falls back to it — but async actor methods interleave
     on one loop, so each handler task must carry its own copy."""
     if not trace:

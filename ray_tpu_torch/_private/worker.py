@@ -59,6 +59,7 @@ from ray_tpu_torch.exceptions import (ActorDiedError, ActorError,
 from ray_tpu_torch.object_ref import ObjectRef, set_release_hook
 
 from ray_tpu_torch._private.actor_state import (EXECUTING_ACTOR,
+                                                EXECUTING_TASK,
                                           REPLY_EVICTED,
                                           ActorInstance,
                                           ActorSubmitState,
@@ -220,15 +221,10 @@ class CoreWorker:
         self.actors_hosted: dict[str, ActorInstance] = {}
         self.actor_states: dict[str, ActorSubmitState] = {}
         self.current_actor_id: str | None = None
-        self.current_task_id: str | None = None
         # Lease resources + runtime env of the executing task, for
         # runtime_context.get_assigned_resources/get_runtime_env_string.
         self.current_resources: dict | None = None
         self.current_runtime_env: dict | None = None
-        # Trace context of the currently-executing task (ray: OpenTelemetry
-        # propagation, util/tracing/tracing_helper.py): child submissions
-        # inherit trace_id, and task events / profiling spans carry it.
-        self.current_trace: dict | None = None
         # Driver address of the job whose task is currently executing
         # (propagated in task headers like `trace`); None outside tasks.
         self.current_driver_addr: str | None = None
@@ -296,6 +292,21 @@ class CoreWorker:
         from ray_tpu_torch._private.config import tune_gc
 
         tune_gc(framework_process=(self.mode != "driver"))
+
+    # The executing call's task id and trace header (ray: OpenTelemetry
+    # propagation, util/tracing/tracing_helper.py): child submissions
+    # inherit the trace, and task events and profiling spans carry both.
+    # They follow the call (actor_state.EXECUTING_TASK), since the device
+    # worker runs many actors' calls at once; None outside any call.
+    @property
+    def current_task_id(self) -> str | None:
+        c = EXECUTING_TASK.get()
+        return None if c is None else c[0]
+
+    @property
+    def current_trace(self) -> dict | None:
+        c = EXECUTING_TASK.get()
+        return None if c is None else c[1]
 
     @property
     def driver_addr(self) -> str:
@@ -914,9 +925,9 @@ class CoreWorker:
             for oid, owner in borrowed.items():
                 self._add_borrow(oid, owner)
         # Trace context priority: an OPEN flight-recorder span (contextvar
-        # — set by library spans and by async actor handlers, which never
-        # touch the process-global current_trace) beats the executing
-        # task's header; outside both, the submission roots a new trace.
+        # — set by library spans and by async actor handlers) beats the
+        # executing call's header; outside both, the submission roots a
+        # new trace.
         tc = spans.task_trace_context() or self.current_trace
         header = {
             "task_id": task_id.hex(), "function_id": fid,
@@ -1928,13 +1939,10 @@ class CoreWorker:
         t_span0 = time.time() if spans.ENABLED else 0.0
         if isinstance(hops, dict):
             hops["exec_start"] = time.monotonic()
-        prev = self.current_task_id
-        prev_trace = self.current_trace
+        task_token = EXECUTING_TASK.set((th["task_id"], th.get("trace")))
         prev_driver = self.current_driver_addr
         prev_res = self.current_resources
         prev_renv = self.current_runtime_env
-        self.current_task_id = th["task_id"]
-        self.current_trace = th.get("trace")
         self.current_driver_addr = th.get("driver_addr") or prev_driver
         self.current_resources = th.get("resources")
         self.current_runtime_env = th.get("runtime_env")
@@ -1968,8 +1976,7 @@ class CoreWorker:
                 payload = _pickle.dumps(RuntimeError(str(e)))
             rec["err"] = (payload, tb_str)
         finally:
-            self.current_task_id = prev
-            self.current_trace = prev_trace
+            EXECUTING_TASK.reset(task_token)
             self.current_driver_addr = prev_driver
             self.current_resources = prev_res
             self.current_runtime_env = prev_renv
@@ -2186,11 +2193,8 @@ class CoreWorker:
 
         def _producer():
             nonlocal count
-            prev = self.current_task_id
-            prev_trace = self.current_trace
+            token = EXECUTING_TASK.set((h["task_id"], h.get("trace")))
             prev_driver = self.current_driver_addr
-            self.current_task_id = h["task_id"]
-            self.current_trace = h.get("trace")
             self.current_driver_addr = h.get("driver_addr") or prev_driver
             try:
                 for item in thunk():
@@ -2198,8 +2202,7 @@ class CoreWorker:
                         ship(item, count), loop).result()
                     count += 1
             finally:
-                self.current_task_id = prev
-                self.current_trace = prev_trace
+                EXECUTING_TASK.reset(token)
                 self.current_driver_addr = prev_driver
 
         try:
@@ -2283,22 +2286,26 @@ class CoreWorker:
                              driver_addr: str | None = None,
                              resources: dict | None = None,
                              runtime_env: dict | None = None):
-        prev_task = self.current_task_id
-        prev_trace = self.current_trace
         prev_driver = self.current_driver_addr
         prev_res = self.current_resources
         prev_renv = self.current_runtime_env
-        self.current_task_id = task_id.hex() if task_id else None
-        self.current_trace = trace
         self.current_driver_addr = driver_addr or prev_driver
         self.current_resources = resources
         self.current_runtime_env = runtime_env
+        call = (task_id.hex() if task_id else None, trace)
+
+        def _in_call():
+            # Set in the thread that runs the call: run_in_executor does
+            # not carry this loop task's context over.
+            token = EXECUTING_TASK.set(call)
+            try:
+                return thunk()
+            finally:
+                EXECUTING_TASK.reset(token)
         try:
             return await self.loop.run_in_executor(
-                executor or self._default_executor, thunk)
+                executor or self._default_executor, _in_call)
         finally:
-            self.current_task_id = prev_task
-            self.current_trace = prev_trace
             self.current_driver_addr = prev_driver
             self.current_resources = prev_res
             self.current_runtime_env = prev_renv
@@ -2830,13 +2837,14 @@ class CoreWorker:
                 else inst.default_semaphore()
 
             async def _run_async():
-                # Async actor methods never set the process-global
-                # current_trace (they interleave on one loop); the
-                # handler task carries the request's trace context in
-                # its own contextvars copy instead, so nested handle
-                # calls / recorder spans continue THIS request's trace.
+                # Async actor methods interleave on one loop: the
+                # handler task carries the request's trace context, task
+                # id and actor in its own contextvars copy, so nested
+                # handle calls / recorder spans continue THIS request's
+                # trace.
                 spans.adopt_task_trace(h.get("trace"))
                 EXECUTING_ACTOR.set(inst.actor_id)
+                EXECUTING_TASK.set((h["task_id"], h.get("trace")))
 
                 async def _invoke():
                     return await method(*args, **kwargs)
@@ -2850,18 +2858,14 @@ class CoreWorker:
             self._running_async[task_id] = atask
         else:
             def _call():
-                prev = self.current_task_id
-                prev_trace = self.current_trace
+                token = EXECUTING_TASK.set((h["task_id"], h.get("trace")))
                 prev_driver = self.current_driver_addr
-                self.current_task_id = h["task_id"]
-                self.current_trace = h.get("trace")
                 self.current_driver_addr = (h.get("driver_addr")
                                             or prev_driver)
                 try:
                     return method(*args, **kwargs)
                 finally:
-                    self.current_task_id = prev
-                    self.current_trace = prev_trace
+                    EXECUTING_TASK.reset(token)
                     self.current_driver_addr = prev_driver
             atask = self.loop.run_in_executor(inst.executor_for(group),
                                               _call)

@@ -14,10 +14,11 @@ payload ref, version, rank; every publish bumps the version).  A
 `LoraClient` publishes and looks up, either on a directory injected in
 process or through the runtime's controller (`lora_<verb>`);
 `resolve_entry` pulls a looked-up payload through the runtime when it is
-a ref.  Not ported: the controller's administrative verbs (`clear`,
-`summary`), the client's `fetch`, `summary` and `stats`, and the
-module-level driver helpers (`publish_adapter`, `delete_adapter`,
-`list_adapters`), which need a cluster-wide default client.
+a ref.  Not ported: the directory's `summary` view (read by the
+adapter-aware routing, not ported yet), the client's `fetch`, `summary`
+and `stats`, and the module-level driver helpers (`publish_adapter`,
+`delete_adapter`, `list_adapters`), which need a cluster-wide default
+client.
 """
 from __future__ import annotations
 
@@ -150,6 +151,12 @@ class AdapterDirectory:
             if e is not None:
                 self.forgotten += 1
             return e is not None
+
+    def clear(self) -> None:
+        """Drop every entry (serve shutdown: the entries hold the
+        adapters' primary refs)."""
+        with self._lock:
+            self._adapters.clear()
 
     def stats(self) -> dict:
         with self._lock:

@@ -22,9 +22,9 @@ the graft takes as it is.
 Kill switch: RAY_TPU_PREFIX_STORE=0 (read per request) and the request
 key {"prefix_store": false}.  Not ported: the reference's failpoint sites
 and tracing spans on the publish, fetch and graft legs, and the
-directory's controller-side verbs (`drop_app`, `drop_replica`, `clear`,
-`summary`, `replicas`, `bytes_by_deployment`: app deletion, orphan checks,
-the router's view and its gauge).
+directory's controller-side views (`summary`, `replicas`,
+`bytes_by_deployment`: the router's view, orphan checks and their gauge;
+an app is dropped with `forget(app)`).
 """
 from __future__ import annotations
 
@@ -32,7 +32,6 @@ import os
 import threading
 import time
 
-from ray_tpu_torch.models.convert import as_tensor
 from ray_tpu_torch.serve.kv_router import (matched_depth, prefix_store_on,
                                            prompt_hashes)
 from ray_tpu_torch.serve.runtime import ServeRuntime
@@ -200,6 +199,13 @@ class StoreDirectory:
             if not a["entries"]:
                 self._apps.pop(app, None)
         return n
+
+    def clear(self) -> None:
+        """Drop every entry (serve shutdown: the directory holds borrowed
+        refs that must not outlive it)."""
+        with self._lock:
+            self._apps.clear()
+            self._bytes = 0
 
     # ------------------------------------------------------------- read
     def lookup(self, app: str, hashes: list, page: int, seed,
@@ -414,6 +420,8 @@ class PrefixStoreClient:
                 payload = entry["ref"]
                 if self._runtime.is_ref(payload):
                     payload = self._runtime.get(payload, timeout=30.0)
+                from ray_tpu_torch.models.convert import as_tensor
+
                 blob = as_tensor(payload)
                 pulled = True
                 self.fetches += 1

@@ -875,12 +875,6 @@ class LocalRuntime(ServeRuntime):
         return _Received(g, seq, src_rank, payload)
 
 
-def _later(face: str, item: str):
-    raise NotImplementedError(
-        f"ClusterRuntime: the {face} is not ported yet (ROADMAP.md queue "
-        f"1: {item})")
-
-
 class ClusterRuntime(ServeRuntime):
     """ServeRuntime over the port's own runtime (`ray_tpu_torch.init()`:
     the controller, the node agent and worker processes of `_private/`),
@@ -895,9 +889,11 @@ class ClusterRuntime(ServeRuntime):
     tracing face (`tracing.py`, the process's flight recorder, harvested
     cluster-wide by `ray_tpu_torch.tracing.harvest()`), the metric face
     (`utils/metrics.py`, flushed to the controller's KV) and the
-    memory-ledger face (`_private/memledger.py`).  The serve faces belong
-    to a later slice of the port and raise NotImplementedError naming it.
-    It holds no state, so it pickles into actors."""
+    memory-ledger face (`_private/memledger.py`) and the serve face
+    (`serve/api.py`, `serve/replica.py`: a deployment's handle, the
+    current replica's context or None outside one, the serve
+    controller's handle or None before `serve.start()`).  It holds no
+    state, so it pickles into actors."""
 
     # ---------------------------------------------------------- objects
     def put(self, value):
@@ -917,13 +913,19 @@ class ClusterRuntime(ServeRuntime):
 
     # ------------------------------------------------------------ serve
     def deployment_handle(self, name: str, app: str):
-        _later("serve face", "serve")
+        from ray_tpu_torch.serve import api
+
+        return api.get_deployment_handle(name, app)
 
     def replica_context(self):
-        _later("serve face", "serve")
+        from ray_tpu_torch.serve import replica
+
+        return replica.get_current_context()
 
     def controller(self):
-        _later("serve face", "serve")
+        from ray_tpu_torch.serve import api
+
+        return api.controller_or_none()
 
     # ----------------------------------------------------------- actors
     def remote(self, cls):

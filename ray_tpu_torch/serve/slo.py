@@ -1,6 +1,10 @@
-"""The overload-degradation policy the LLM server and engine need, copied
-from ray_tpu/serve/slo.py (the port imports nothing of ray_tpu).
+"""The overload policy the replica, the LLM server and the engine need,
+copied from ray_tpu/serve/slo.py (the port imports nothing of ray_tpu).
 
+  - **Priority tiers** honored at the replica's admission
+    (`request_priority`, `queue_budget`): a HIGH request may use 2x the
+    queue budget, LOW only half, so under overload the best-effort tier
+    is shed first.
   - **degrade_on**: the RAY_TPU_SERVE_DEGRADE kill switch (read per
     call; off = never shed disaggregation or shrink sync windows).
   - **LatencyWindow**: bounded recent latency samples by key, behind the
@@ -9,9 +13,9 @@ from ray_tpu/serve/slo.py (the port imports nothing of ray_tpu).
     depth (level 1 sheds disaggregation to unified serving, level 2 also
     shrinks the decode sync window).
 
-The priority tiers, admission budgets and the autoscaling policies
-(`slo_desired`, `pd_rebalance`) belong to the replica and the controller
-of the reference's serve runtime and are not ported.
+The autoscaling policies (`slo_desired`, `pd_rebalance`) belong to the
+controller's autoscaler, which is not ported yet (ROADMAP.md queue 1:
+serve).
 """
 from __future__ import annotations
 
@@ -20,6 +24,45 @@ import threading
 import time
 
 from ray_tpu_torch.serve.kv_router import env_on
+
+
+# Priority tiers (smaller = more important).  A request's tier comes
+# from handle.options(priority=...) or a {"serve_priority": n} key in a
+# dict-shaped request payload.
+PRIORITY_HIGH = 0
+PRIORITY_NORMAL = 1
+PRIORITY_LOW = 2
+
+
+def queue_budget(priority: int, max_queued: int) -> int:
+    """Per-tier admission queue budget: HIGH gets 2x headroom, LOW
+    half (shed first).  A budget of 0 means NO queueing for that tier
+    (the request still admits whenever an execution slot is free —
+    admission compares ongoing against max_ongoing + budget)."""
+    if max_queued <= 0:
+        return 0
+    if priority <= PRIORITY_HIGH:
+        return 2 * max_queued
+    if priority >= PRIORITY_LOW:
+        return max_queued // 2
+    return max_queued
+
+
+def request_priority(priority, args: tuple = (), kwargs: dict | None
+                     = None) -> int:
+    """Resolve a request's tier: the handle-level option wins; else a
+    {"serve_priority": n} key in a dict payload — a RESERVED key, not
+    the app's own "priority" field (an application convention where
+    bigger = more urgent would silently invert into the shed-first
+    tier); else NORMAL."""
+    if priority is not None:
+        return int(priority)
+    for v in list(args) + list((kwargs or {}).values()):
+        if isinstance(v, dict):
+            p = v.get("serve_priority")
+            if isinstance(p, int) and not isinstance(p, bool):
+                return p
+    return PRIORITY_NORMAL
 
 
 def degrade_on() -> bool:

@@ -52,6 +52,12 @@ def test_walk_covers_the_package_and_chip_smoke():
                 "ray_tpu_torch/serve/schema.py",
                 "ray_tpu_torch/serve/prefix_store.py",
                 "ray_tpu_torch/serve/lora.py",
+                "ray_tpu_torch/serve/api.py",
+                "ray_tpu_torch/serve/controller.py",
+                "ray_tpu_torch/serve/replica.py",
+                "ray_tpu_torch/serve/handle.py",
+                "ray_tpu_torch/serve/deployment.py",
+                "ray_tpu_torch/serve/config.py",
                 "ray_tpu_torch/models/llama.py",
                 "ray_tpu_torch/models/moe.py",
                 "ray_tpu_torch/models/vit.py",

@@ -8,7 +8,8 @@ has a timeout.
 - The actor face, as tests/test_torch_local_runtime.py checks it on
   `LocalRuntime`: max_concurrency and ref arguments, a kill that fails
   later calls with `ActorDiedError`, `resolve_tree` over refs; the serve
-  face, a later slice's, raises NotImplementedError.
+  face before `serve.start()` (tests/test_torch_serve_port.py runs it
+  with serve up).
 - PPO's first two step()s through `config.build(runtime=ClusterRuntime(),
   device="cpu")`, held as tests/test_torch_rl_cluster.py holds
   `RayTpuRuntime`: each batch equal bit for bit to the same algorithm's
@@ -113,16 +114,16 @@ def test_actor_face(cluster):
     assert rt.failpoint("rl.rollout_step") is None
     with rt.memory_tag("rollout"):
         pass
-    # The collective, tracing and metric faces are bound; only the serve
-    # face belongs to a later slice and raises, naming it.
+    # The collective, tracing, metric and serve faces are bound.  With
+    # serve not started, the driver is in no replica, there is no
+    # controller, and a deployment handle cannot be had.
     assert isinstance(rt.tracing_enabled(), bool)
     rt.metric("counter", "paths_face_calls").inc()
     assert rt.get_rank("never-formed") == -1
-    for call in (lambda: rt.deployment_handle("d", "a"),
-                 lambda: rt.replica_context(),
-                 lambda: rt.controller()):
-        with pytest.raises(NotImplementedError, match="queue 1: serve"):
-            call()
+    assert rt.replica_context() is None
+    assert rt.controller() is None
+    with pytest.raises(RuntimeError, match="serve is not running"):
+        rt.deployment_handle("d", "a")
 
 
 # ----------------------------------------------------------------- PPO
